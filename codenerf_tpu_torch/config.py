@@ -1,0 +1,143 @@
+"""The configuration fields the serving render reads.
+
+A trimmed copy of ``codenerf_tpu/config/schema.py`` for the modern YAML
+layout (``configs/srn-cars-code.yml``): the same nested names, so
+``cfg.nerf.point_sampler.num_coarse`` means the same thing in both
+packages.  ``load_config`` imports ``yaml`` inside the function only, so
+the package imports on a machine without PyYAML; ``SRN_CARS_CODE`` carries
+the flagship values as a literal for exactly that case.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields, is_dataclass
+from pathlib import Path
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    image_size: int = 128
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    type: str = "CodeNeRFModel"
+    hidden_size: int = 128
+
+
+@dataclass(frozen=True)
+class EmbeddingSpec:
+    shape_code_size: int = 128
+    texture_code_size: int = 128
+
+
+@dataclass(frozen=True)
+class ModelsConfig:
+    nerf_coarse: ModelSpec = field(default_factory=ModelSpec)
+    nerf_fine: ModelSpec = field(default_factory=ModelSpec)
+    embedding: EmbeddingSpec = field(default_factory=EmbeddingSpec)
+
+
+@dataclass(frozen=True)
+class PointSamplerConfig:
+    num_coarse: int = 32
+    num_fine: int = 128
+    near_limit: float = 0.8
+    far_limit: float = 1.8
+    # the reference's labels are inverted vs the NeRF convention:
+    # "lindepth" is linear in disparity (see ops/sampling.py)
+    spacing_mode: str = "lindepth"
+
+
+@dataclass(frozen=True)
+class EmbedderConfig:
+    num_encoding_fn_xyz: int = 10
+    include_input_xyz: bool = True
+    log_sampling_xyz: bool = True
+    use_viewdirs: bool = True
+    num_encoding_fn_dir: int = 4
+    include_input_dir: bool = True
+    log_sampling_dir: bool = True
+
+
+@dataclass(frozen=True)
+class StageConfig:
+    chunksize: int = 4096
+    radiance_field_noise_std: float = 0.0
+
+
+@dataclass(frozen=True)
+class NerfConfig:
+    point_sampler: PointSamplerConfig = field(
+        default_factory=PointSamplerConfig)
+    embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
+    white_background: bool = False
+    train: StageConfig = field(default_factory=StageConfig)
+    validation: StageConfig = field(default_factory=StageConfig)
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    compute_dtype: Optional[str] = "bfloat16"
+
+
+@dataclass(frozen=True)
+class Config:
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    models: ModelsConfig = field(default_factory=ModelsConfig)
+    nerf: NerfConfig = field(default_factory=NerfConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+
+
+# The render-relevant values of configs/srn-cars-code.yml, in its layout.
+SRN_CARS_CODE = {
+    "dataset": {"image_size": 128},
+    "models": {
+        "nerf_coarse": {"type": "CodeNeRFModel", "hidden_size": 256},
+        "nerf_fine": {"type": "CodeNeRFModel", "hidden_size": 256},
+        "embedding": {"shape_code_size": 256, "texture_code_size": 256},
+    },
+    "nerf": {
+        "point_sampler": {"num_coarse": 32, "num_fine": 128,
+                          "near_limit": 0.8, "far_limit": 1.8,
+                          "spacing_mode": "lindepth"},
+        "embedder": {"num_encoding_fn_xyz": 10, "include_input_xyz": True,
+                     "log_sampling_xyz": True, "use_viewdirs": True,
+                     "num_encoding_fn_dir": 4, "include_input_dir": True,
+                     "log_sampling_dir": True},
+        "white_background": False,
+        "train": {"chunksize": 4096, "radiance_field_noise_std": 0.0},
+        "validation": {"chunksize": 4096, "radiance_field_noise_std": 0.0},
+    },
+    "runtime": {"compute_dtype": "bfloat16"},
+}
+
+
+def _build(cls, d):
+    """Instantiate dataclass ``cls`` from dict ``d``, recursing into
+    nested dataclass fields and ignoring keys the port does not read."""
+    d = d or {}
+    kwargs = {}
+    for f in fields(cls):
+        if f.name not in d:
+            continue
+        sub = f.default_factory
+        if isinstance(sub, type) and is_dataclass(sub):
+            kwargs[f.name] = _build(sub, d[f.name])
+        else:
+            kwargs[f.name] = d[f.name]
+    return cls(**kwargs)
+
+
+def config_from_dict(d: dict) -> Config:
+    """Config from a nested dict in the YAML layout."""
+    return _build(Config, d)
+
+
+def load_config(path) -> Config:
+    """Config from a YAML file in the modern layout.  Needs PyYAML, which
+    is imported here only."""
+    import yaml
+    with open(Path(path)) as f:
+        return config_from_dict(yaml.safe_load(f))

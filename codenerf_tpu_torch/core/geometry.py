@@ -1,0 +1,47 @@
+"""Camera and ray geometry (counterpart of ``codenerf_tpu/core/geometry.py``).
+
+Convention as in the reference (ray_sampler.py:44-51): x right, y up, the
+camera looks down -z.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pixel_directions(height: int, width: int,
+                     intrinsic: torch.Tensor) -> torch.Tensor:
+    """Camera-frame ray directions [H, W, 3] (unnormalized).  ``intrinsic``
+    is 4x4 with focal [0,0] and cx/cy at [0,2]/[1,2]."""
+    focal, cx, cy = intrinsic[0, 0], intrinsic[0, 2], intrinsic[1, 2]
+    kw = dict(dtype=intrinsic.dtype, device=intrinsic.device)
+    jj, ii = torch.meshgrid(torch.arange(height, **kw),
+                            torch.arange(width, **kw), indexing="ij")
+    return torch.stack([(ii - cx) / focal, -(jj - cy) / focal,
+                        -torch.ones_like(ii)], dim=-1)
+
+
+def ray_bundle(directions: torch.Tensor, pose_c2w: torch.Tensor):
+    """World-frame (ro, rd), each [B, H, W, 3], for poses [B, 4, 4]:
+    rd[b] = R_b @ dir, ro[b] = t_b broadcast (ray_sampler.py:84-99)."""
+    rot = pose_c2w[..., :3, :3]
+    rd = torch.einsum("hwi,bji->bhwj", directions, rot)
+    ro = pose_c2w[..., :3, 3][:, None, None, :].expand(rd.shape)
+    return ro, rd
+
+
+def pose_spherical(theta, phi, rho, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """Camera-to-world pose [4, 4] on a sphere looking at the origin, in
+    the reference's matrix layout (eval.py:33-38)."""
+    kw = dict(dtype=dtype, device=device)
+    theta, phi, rho = (torch.as_tensor(v, **kw).reshape(())
+                       for v in (theta, phi, rho))
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    zero, one = torch.zeros_like(st), torch.ones_like(st)
+    c0 = torch.stack([-sp, cp, zero, zero])
+    c1 = torch.stack([-st * cp, -st * sp, ct, zero])
+    c2 = torch.stack([ct * cp, ct * sp, st, zero])
+    c3 = torch.stack([rho * ct * cp, rho * ct * sp, rho * st, one])
+    return torch.stack([c0, c1, c2, c3], dim=-1)

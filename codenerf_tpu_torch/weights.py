@@ -1,0 +1,36 @@
+"""Bridge from the JAX package's parameter pytrees to the port's state
+dicts.
+
+The inputs are numpy views of the JAX pytrees (``{layer: {"w", "b"}}``
+with ``w`` as ``[in, out]``, and ``{"shape", "texture"}`` code tables);
+nothing here imports JAX.  The outputs use the reference state-dict
+names, as ``codenerf_tpu/train/torch_import.py`` writes them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from codenerf_tpu_torch.models.mlp import LAYER_NAMES
+
+
+def codenerf_from_jax(params_np: dict) -> dict:
+    """CodeNeRF pytree -> ``CodeNeRF`` state dict ([in, out] -> [out, in])."""
+    out = {}
+    for name in LAYER_NAMES:
+        w = np.asarray(params_np[name]["w"], np.float32)
+        b = np.asarray(params_np[name]["b"], np.float32)
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
+        out[f"{name}.bias"] = torch.from_numpy(b.copy())
+    return out
+
+
+def codes_from_jax(codes_np: dict) -> dict:
+    """Code tables -> ``CodeTables`` state dict."""
+    return {
+        "shape_embedding.weight": torch.from_numpy(
+            np.array(codes_np["shape"], np.float32)),
+        "texture_embedding.weight": torch.from_numpy(
+            np.array(codes_np["texture"], np.float32)),
+    }
