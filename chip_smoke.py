@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``codenerf_tpu_torch``).
 
-Drives the port's serving path on one NVIDIA card at the flagship width
-of ``configs/srn-cars-code.yml`` (values from ``SRN_CARS_CODE``, so no
-YAML is read) with random weights from a seed:
+Drives the port's serving render and train step on one NVIDIA card at the
+flagship width of ``configs/srn-cars-code.yml`` (values from
+``SRN_CARS_CODE``, so no YAML is read) with random weights from a seed:
 
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``) with nvcc into
-               ``build/torch_kernels/``.
-  3. kernels — K1 against its plain PyTorch version on the card at the
-               main path's shapes (R = 4096 rays, S = 32 and 160); max abs
-               error, relRMS (gate 1e-2), kernel and plain times (CUDA
-               events around back-to-back calls) beside the bound.
+  2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``) and K2 / K3
+               (``ops/csrc/trunk_bwd.cu``) with one nvcc each, started
+               together, into ``build/torch_kernels/``; print ptxas's
+               registers and spills.
+  3. kernels — K1, K2 and K3 against their plain PyTorch versions on the
+               card at the main paths' shapes (R = 4096 rays, S = 32 and
+               160): max abs error and relRMS of every output (gate 1e-2),
+               K2 / K3 bit-identical across two calls; kernel and plain
+               times (CUDA events around back-to-back calls) beside the
+               bound, K2 / K3 at the train step's R = 16384.
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
                with K1 (K1's launch count must rise by exactly 8), the same
                image with the plain trunk (PSNR gate 40 dB), and a 16x16
                image on the card against the port's CPU path (40 dB).
   5. profile — one more render under ``torch.profiler``: device busy
                time by kernel, K1's share, the idle share.
-  6. result  — the kernel table as one JSON line, the card line, and the
+  6. train   — the flagship train step from a seeded student with 8
+               objects on 4 targets a seeded teacher renders: one step with
+               the kernels against the same step on the plain versions
+               (gradient relRMS gate 1e-2 per leaf), then 30 steps of
+               4 x 4096 rays (launches per step, ms per step, rays/s; the
+               loss must fall), in fused mode (K1 + K2) and hybrid mode
+               (K3); one fused step under ``torch.profiler``.
+  7. result  — the kernel table as one JSON line, the card line, and the
                last line ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
@@ -29,10 +40,12 @@ the standard library and ``codenerf_tpu_torch``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -41,10 +54,14 @@ from codenerf_tpu_torch.core import mse2psnr, pixel_directions, pose_spherical
 from codenerf_tpu_torch.eval import make_image_renderer
 from codenerf_tpu_torch.models import CodeNeRF, CodeTables, lookup_codes
 from codenerf_tpu_torch.ops import _build
-from codenerf_tpu_torch.ops.fused import (kernel_weights, per_ray_parts,
-                                          trunk_forward, trunk_forward_plain)
+from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
+                                          kernel_weights, per_ray_parts,
+                                          trunk_backward,
+                                          trunk_backward_plain, trunk_forward,
+                                          trunk_forward_plain)
 from codenerf_tpu_torch.core.encoding import positional_encoding
 from codenerf_tpu_torch.pipeline import RenderSettings
+from codenerf_tpu_torch.train import init_train_state, make_train_step
 
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
@@ -108,18 +125,19 @@ def bound_ms(cost) -> tuple:
                                        else "bytes")
 
 
-def profile_render(render, args, unprofiled_ms) -> dict:
-    """Device time by kernel over one render under ``torch.profiler``
-    (one stream, so the sum of kernel times is the busy time).  Only
-    device-side entries count: an operator's own entry repeats the time of
-    the kernels it launched."""
+def profile_call(fn, args, unprofiled_ms, kernels: dict) -> dict:
+    """Device time by kernel over one call of ``fn`` under
+    ``torch.profiler`` (one stream, so the sum of kernel times is the busy
+    time), and the time of each kernel whose name holds the substring
+    ``kernels[label]``.  Only device-side entries count: an operator's own
+    entry repeats the time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render(*args)
+        fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -128,14 +146,143 @@ def profile_render(render, args, unprofiled_ms) -> dict:
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3)
     busy = sum(by_name.values())
-    k1 = sum(v for k, v in by_name.items() if "trunk_fwd" in k)
+    kernel_ms = {label: sum(v for k, v in by_name.items() if sub in k)
+                 for label, sub in kernels.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
             "unprofiled_ms": unprofiled_ms,
             "idle_share": (1 - busy / unprofiled_ms) if busy else None,
-            "k1_ms": k1, "k1_share_of_busy": k1 / busy if busy else None,
+            "kernel_ms": kernel_ms,
+            "kernel_share_of_busy": {k: v / busy if busy else None
+                                     for k, v in kernel_ms.items()},
             "n_kernel_names": len(by_name),
             "top": [[k[:80], v] for k, v in top]}
+
+
+def bwd_cost(R, S, weights, per_ray, F, stored) -> dict:
+    """Work of one K2 (or, ``stored``, K3) launch on these inputs: bf16
+    product FLOPs (the dx and dW products, plus K2's recompute of K1's
+    hidden layers), f32 encode and g_pts operations, and the bytes it must
+    move (each input read once, each output written once; the per-block
+    slabs are scratch)."""
+    h, sc = weights["wof"].shape
+    x = 3 * h if weights["w1x"] is not None else 0
+    hidden = 2 * 3 * F * h + x + h * h + h * sc + sc * h + h * h
+    dx = 3 * h + h * h + h * sc + sc * h + h + h * h + 2 * 3 * F * h + x
+    dw = 3 * h + h + h * h + sc * h + h * sc + h * h + 2 * 3 * F * h + x
+    macs = dx + dw + (0 if stored else hidden)
+    rows = R * S
+    weight_bytes = sum(w.numel() * 2 for k, w in weights.items()
+                       if k not in ("E", "b1", "bd2") and w is not None)
+    weight_bytes += 2 * (2 * h) + 4 * F
+    grad_bytes = 4 * (2 * 3 * F * h + x + 2 * h * h + 2 * h * sc + h
+                      + 3 * h + 2 * h)
+    row_width = sum(per_ray[k].shape[-1] for k in per_ray)
+    act_bytes = rows * (4 * h + sc) * 2 if stored else 0
+    return {"bf16_flops": 2 * macs * rows,
+            "f32_ops": (2 * 9 * F + 5 * 3 * F) * rows,
+            "bytes": rows * (12 + 16 + 12) + act_bytes + R * row_width * 6
+            + weight_bytes + grad_bytes}
+
+
+def bwd_outputs(res) -> dict:
+    """The outputs of a trunk backward, by name."""
+    g_pts, g_per_ray, db1, dw = res
+    out = {"g_pts": g_pts, "db1": db1}
+    out.update({f"g_{k}": g_per_ray[k] for k in PER_RAY_KEYS})
+    out.update({f"d{k}": v for k, v in dw.items() if v is not None})
+    return out
+
+
+def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
+    """K2 and K3 against their plain version on the card: every output at
+    R = 4096 rays, S = 32 and 160 (relRMS gate, bit-identity across two
+    calls), and times at the train step's R = len(ro) rays."""
+    cfg = model.cfg
+    F = settings.num_encoding_fn_xyz
+    R_step = ro.shape[0]
+    R_check = min(4096, R_step)
+    viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
+                                  settings.include_input_dir,
+                                  settings.log_sampling_dir)
+    with torch.no_grad():
+        per_ray_all = per_ray_parts(model, dir_enc, zs, zt)
+        weights = kernel_weights(model, F, settings.log_sampling_xyz)
+    b1 = weights["b1"]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    out = {"K2": [], "K3": []}
+    for S in (settings.num_coarse, settings.num_coarse + settings.num_fine):
+        z = torch.sort(settings.near + (settings.far - settings.near)
+                       * torch.rand(R_step, S, generator=gen), dim=-1).values
+        pts_all = (ro[:, None, :] + rd[:, None, :]
+                   * z.cuda()[..., None]).contiguous()
+        g_all = torch.randn(R_step, S, 4, generator=gen).cuda()
+        for R in (R_check, R_step):
+            pts, g = pts_all[:R].contiguous(), g_all[:R].contiguous()
+            per_ray = {k: v[:R] for k, v in per_ray_all.items()}
+            with torch.no_grad():
+                _, acts = hybrid_forward_plain(pts, per_ray, weights,
+                                               compute_dtype=cfg.cdtype)
+            for name, a in (("K2", None), ("K3", acts)):
+                def kern():
+                    return trunk_backward(pts, per_ray, b1, weights, g, a,
+                                          compute_dtype=cfg.cdtype)
+
+                def plain():
+                    return trunk_backward_plain(pts, per_ray, b1, weights,
+                                                g, a,
+                                                compute_dtype=cfg.cdtype)
+
+                if R == R_check:
+                    got, again, want = (bwd_outputs(f())
+                                        for f in (kern, kern, plain))
+                    torch.cuda.synchronize()
+                    errs = {}
+                    for k, w in want.items():
+                        d = got[k] - w
+                        errs[k] = (float(d.abs().max()),
+                                   float(torch.linalg.norm(d)
+                                         / torch.linalg.norm(w)))
+                        if not bool(torch.isfinite(got[k]).all()):
+                            raise RuntimeError(f"{name} {k} is not finite "
+                                               f"at S={S}")
+                        if not torch.equal(got[k], again[k]):
+                            raise RuntimeError(f"{name} {k} differs between "
+                                               f"two calls at S={S}")
+                    worst = max(errs, key=lambda k: errs[k][1])
+                    print(f"{name} R={R} S={S}: every output bit-identical "
+                          f"across two calls; max_abs_err / rel_rms: "
+                          + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
+                                      for k, v in errs.items()),
+                          flush=True)
+                    if not errs[worst][1] <= REL_RMS_GATE:
+                        raise RuntimeError(
+                            f"{name} disagrees with its plain version at "
+                            f"S={S}: {worst} relRMS {errs[worst][1]} > "
+                            f"{REL_RMS_GATE}")
+                    row = {"S": S, "max_abs_err": max(
+                        v[0] for v in errs.values()),
+                        "rel_rms": errs[worst][1], "worst": worst}
+                    out[name].append(row)
+                    del got, again, want
+                else:
+                    row = out[name][-1]
+                    ms = time_ms(kern, calls=3, repeats=5, warmup=1)
+                    plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
+                    cost = bwd_cost(R, S, weights, per_ray, F, a is not None)
+                    b_ms, b_by = bound_ms(cost)
+                    row.update({"R": R, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                "cost": cost})
+                    print(f"{name} R={R} S={S}: ms={ms:.6g} "
+                          f"plain_ms={plain_ms:.6g} bound_ms={b_ms:.6g} "
+                          f"({b_by}) achieved="
+                          f"{cost['bf16_flops'] / ms / 1e9:.6g} TFLOP/s "
+                          f"on {card}", flush=True)
+            del acts
+            torch.cuda.empty_cache()
+    return out
 
 
 def phase(name, t0):
@@ -196,6 +343,142 @@ def check_k1(settings, model, ro, rd, zs, zt, card) -> dict:
     return {"shapes": shapes}
 
 
+TRAIN_STEPS = 30
+
+
+def grads_of(state) -> dict:
+    named = [(f"{k}.{n}", p) for k, m in state.models.items()
+             for n, p in m.named_parameters()]
+    named += [(f"codes.{n}", p) for n, p in state.tables.named_parameters()]
+    return {n: p.grad.detach().clone() for n, p in named}
+
+
+def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
+    """The flagship train step on the card (phase 6), in fused and hybrid
+    mode."""
+    size, chunk = cfg.dataset.image_size, cfg.nerf.validation.chunksize
+    B = cfg.dataset.train_batch_size
+    n_rays = cfg.nerf.ray_sampler.num_random_rays
+    lam = cfg.experiment.regularizer_lambda
+    n_objects = 8
+    poses = torch.stack([pose_spherical(0.5 + 0.25 * i, 0.9 * i, 1.3,
+                                        device="cuda") for i in range(B)])
+    ids = torch.arange(B, device="cuda")
+    render = make_image_renderer(settings, size, size, chunk, "cuda")
+    with torch.no_grad():
+        pixels = torch.stack([
+            render(teacher, dirs, poses[i],
+                   *lookup_codes(tables, ids[i:i + 1])).reshape(size, size, 3)
+            for i in range(B)])
+    print(f"train: {B} targets of {size}x{size} from the seeded teacher; "
+          f"student of {n_objects} objects, {B} x {n_rays} rays a step, "
+          f"regularizer {lam}", flush=True)
+    results = {}
+    for mode in ("fused", "hybrid"):
+        s_mode = dataclasses.replace(settings,
+                                     pallas_hybrid=mode == "hybrid")
+        # (a) one step with the kernels and one on the plain versions, from
+        # the same state and generator seed, at 1 x n_rays rays
+        grads, losses = {}, {}
+        for kernels in (True, False):
+            st = init_train_state(cfg, s_mode, n_objects, seed=SEED + 2,
+                                  device="cuda")
+            step = make_train_step(s_mode, st, n_rays, lam, True,
+                                   kernels=kernels)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+            m = step(dirs, poses[:1], pixels[:1], ids[:1], gen)
+            torch.cuda.synchronize()
+            grads[kernels], losses[kernels] = grads_of(st), float(m.loss)
+            if kernels:
+                student = st
+            else:
+                del st, step
+                torch.cuda.empty_cache()
+        rel = {n: float(torch.linalg.norm(grads[True][n] - g)
+                        / torch.linalg.norm(g))
+               for n, g in grads[False].items() if float(g.norm()) > 0}
+        worst = max(rel, key=rel.get)
+        print(f"train {mode} (a): loss kernels={losses[True]:.8g} "
+              f"plain={losses[False]:.8g}; gradient relRMS over "
+              f"{len(rel)} leaves: worst {worst} {rel[worst]:.4g}, median "
+              f"{statistics.median(rel.values()):.4g}", flush=True)
+        if not rel[worst] <= REL_RMS_GATE:
+            raise RuntimeError(f"train {mode}: {worst} gradient relRMS "
+                               f"{rel[worst]} > {REL_RMS_GATE}")
+        if not abs(losses[True] - losses[False]) <= 1e-3 * losses[False]:
+            raise RuntimeError(f"train {mode}: loss {losses[True]} vs "
+                               f"plain {losses[False]}")
+        del grads
+
+        # (b) TRAIN_STEPS steps at B x n_rays rays, jitter on
+        step = make_train_step(s_mode, student, n_rays, lam, True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        torch.cuda.synchronize()
+        trunk_forward.launches = 0
+        trunk_backward.launches_recompute = 0
+        trunk_backward.launches_stored = 0
+        ms, fine, total = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            m = step(dirs, poses, pixels, ids, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            fine.append(m.loss_fine)
+            total.append(m.loss)
+        counts = {"K1": trunk_forward.launches,
+                  "K2": trunk_backward.launches_recompute,
+                  "K3": trunk_backward.launches_stored}
+        fine = [float(v) for v in fine]
+        total = [float(v) for v in total]
+        step_ms = statistics.median(ms)
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        print(f"train {mode} (b): {TRAIN_STEPS} steps of {B * n_rays} rays: "
+              f"median {step_ms:.6g} ms/step ({B * n_rays / step_ms * 1e3:.6g}"
+              f" rays/s), first {ms[0]:.6g} ms; launches per step "
+              f"{per_step}; fine loss {fine[0]:.6g} -> {fine[-1]:.6g} "
+              f"(loss {total[0]:.6g} -> {total[-1]:.6g}) on {card}",
+              flush=True)
+        want = ({"K1": 2, "K2": 2, "K3": 0} if mode == "fused"
+                else {"K1": 0, "K2": 0, "K3": 2})
+        if per_step != want:
+            raise RuntimeError(f"train {mode}: launches per step {per_step},"
+                               f" expected {want}")
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), total)):
+            raise RuntimeError(f"train {mode}: a loss is not finite")
+        first, last = statistics.mean(fine[:10]), statistics.mean(fine[-10:])
+        if not last < first:
+            raise RuntimeError(f"train {mode}: the fine loss did not fall "
+                               f"({first} -> {last})")
+        results[mode] = {"step_ms": step_ms, "step_ms_all": ms,
+                         "rays_per_s": B * n_rays / step_ms * 1e3,
+                         "launches": counts, "launches_per_step": per_step,
+                         "loss_fine": fine, "loss": total,
+                         "grad_rel_rms_worst": [worst, rel[worst]]}
+
+        if mode == "fused":
+            # (d) one fused step under torch.profiler
+            prof = profile_call(step, (dirs, poses, pixels, ids, gen),
+                                step_ms, {"K1": "trunk_fwd_kernel",
+                                          "K2": "trunk_bwd_kernel",
+                                          "reduce": "trunk_bwd_reduce"})
+            if prof["device_busy_ms"]:
+                print(f"train profile: device busy "
+                      f"{prof['device_busy_ms']:.6g} ms per step against "
+                      f"the unprofiled {step_ms:.6g} ms (idle share "
+                      f"{prof['idle_share']:.4g}); kernel ms "
+                      f"{prof['kernel_ms']}, share of busy "
+                      f"{prof['kernel_share_of_busy']} on {card}",
+                      flush=True)
+            else:
+                print("train profile: torch.profiler recorded no device "
+                      "time: the breakdown is not measured", flush=True)
+            print(json.dumps({"train_profile": prof}), flush=True)
+            results[mode]["profile"] = prof
+        del student, step
+        torch.cuda.empty_cache()
+    return results
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -212,11 +495,16 @@ def main():
     phase("device", t0)
 
     t0 = time.perf_counter()
-    built = _build.build("trunk_fwd")
-    ptxas = [ln.strip() for ln in built["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: K1 {built['path'].name} in {built['seconds']:.2f} s; "
-          + " | ".join(ptxas), flush=True)
+    # one nvcc for each source, started together
+    with ThreadPoolExecutor(2) as pool:
+        builds = dict(zip(("trunk_fwd", "trunk_bwd"),
+                          pool.map(_build.build, ("trunk_fwd", "trunk_bwd"))))
+    for name, built in builds.items():
+        ptxas = [ln.strip() for ln in built["log"].splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Function properties" in ln]
+        print(f"build: {name} {built['path'].name} in "
+              f"{built['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
     phase("build", t0)
 
     cfg = config_from_dict(SRN_CARS_CODE)
@@ -246,6 +534,9 @@ def main():
     k1 = check_k1(settings, models["fine"], ro_all[:chunk].contiguous(),
                   rd_all[:chunk].contiguous(),
                   z_s.expand(chunk, -1), z_t.expand(chunk, -1), card)
+    bwd = check_bwd(settings, models["fine"], ro_all.contiguous(),
+                    rd_all.contiguous(), z_s.expand(len(rd_all), -1),
+                    z_t.expand(len(rd_all), -1), card)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -311,18 +602,24 @@ def main():
     phase("render", t0)
 
     t0 = time.perf_counter()
-    prof = profile_render(render, (models, dirs, pose, z_s, z_t), ms_img)
+    prof = profile_call(render, (models, dirs, pose, z_s, z_t), ms_img,
+                        {"K1": "trunk_fwd_kernel"})
     if prof["device_busy_ms"]:
         print(f"profile: device busy {prof['device_busy_ms']:.6g} ms per "
               f"image against the unprofiled {ms_img:.6g} ms (idle share "
-              f"{prof['idle_share']:.4g}); K1 {prof['k1_ms']:.6g} ms "
-              f"({prof['k1_share_of_busy']:.4g} of busy) on {card}",
-              flush=True)
+              f"{prof['idle_share']:.4g}); K1 "
+              f"{prof['kernel_ms']['K1']:.6g} ms "
+              f"({prof['kernel_share_of_busy']['K1']:.4g} of busy) on "
+              f"{card}", flush=True)
     else:
         print("profile: torch.profiler recorded no device time: the "
               "breakdown is not measured", flush=True)
     print(json.dumps({"profile": prof}), flush=True)
     phase("profile", t0)
+
+    t0 = time.perf_counter()
+    train = train_phase(cfg, settings, models, tables, dirs, card)
+    phase("train", t0)
 
     # one image runs each shape once per chunk
     def per_image(key):
@@ -345,8 +642,37 @@ def main():
         "library_ms": None,
         "per": f"one {size}x{size} image: {n_chunks} launches at each S of "
                f"{[s['S'] for s in k1['shapes']]}, R={chunk}",
+        "launches_per_train_step": train["fused"]["launches_per_step"]["K1"],
         "shapes": k1["shapes"],
     }]
+    for name, mode in (("K2", "fused"), ("K3", "hybrid")):
+        rows = bwd[name]
+        cost = {k: sum(r["cost"][k] for r in rows) for k in rows[0]["cost"]}
+        b_ms, b_by = bound_ms(cost)
+        kernels.append({
+            "name": f"{name} trunk_bwd<{'true' if name == 'K3' else 'false'}>",
+            "route": "cuda",
+            "source": "codenerf_tpu_torch/ops/csrc/trunk_bwd.cu",
+            "replaces": "codenerf_tpu/ops/fused.py:183",
+            "launches": train[mode]["launches"][name],
+            "launches_per_train_step": train[mode]["launches_per_step"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "rel_rms": max(r["rel_rms"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the trunk "
+                            "backward",
+            "per": f"one flagship train step ({mode} mode): one launch at "
+                   f"each S of {[r['S'] for r in rows]}, R={rows[0]['R']}; "
+                   f"launches counted over {TRAIN_STEPS} steps",
+            "shapes": rows,
+        })
+    print(json.dumps({"train": {m: {k: v for k, v in r.items()
+                                    if k != "profile"}
+                                for m, r in train.items()}}), flush=True)
     print(f"wall: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

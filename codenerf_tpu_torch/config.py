@@ -1,4 +1,4 @@
-"""The configuration fields the serving render reads.
+"""The configuration fields the serving render and the train step read.
 
 A trimmed copy of ``codenerf_tpu/config/schema.py`` for the modern YAML
 layout (``configs/srn-cars-code.yml``): the same nested names, so
@@ -16,8 +16,14 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class ExperimentConfig:
+    regularizer_lambda: float = 0.0
+
+
+@dataclass(frozen=True)
 class DatasetConfig:
     image_size: int = 128
+    train_batch_size: int = 1
 
 
 @dataclass(frozen=True)
@@ -37,6 +43,25 @@ class ModelsConfig:
     nerf_coarse: ModelSpec = field(default_factory=ModelSpec)
     nerf_fine: ModelSpec = field(default_factory=ModelSpec)
     embedding: EmbeddingSpec = field(default_factory=EmbeddingSpec)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    type: str = "AdamW"
+    lr: float = 1e-4
+    # None -> falls back to `lr`
+    embedding_lr: Optional[float] = None
+    scheduler_gamma: float = 0.1
+    scheduler_step_size: int = 5000000
+
+    @property
+    def resolved_embedding_lr(self) -> float:
+        return self.lr if self.embedding_lr is None else self.embedding_lr
+
+
+@dataclass(frozen=True)
+class RaySamplerConfig:
+    num_random_rays: int = 4096
 
 
 @dataclass(frozen=True)
@@ -69,6 +94,7 @@ class StageConfig:
 
 @dataclass(frozen=True)
 class NerfConfig:
+    ray_sampler: RaySamplerConfig = field(default_factory=RaySamplerConfig)
     point_sampler: PointSamplerConfig = field(
         default_factory=PointSamplerConfig)
     embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
@@ -80,25 +106,37 @@ class NerfConfig:
 @dataclass(frozen=True)
 class RuntimeConfig:
     compute_dtype: Optional[str] = "bfloat16"
+    # train step: stored-activation backward (K3) instead of the
+    # recompute backward (K2)
+    pallas_hybrid: bool = False
+    # train step: accumulate the gradient over this many ray chunks
+    ray_chunks: int = 1
 
 
 @dataclass(frozen=True)
 class Config:
+    experiment: ExperimentConfig = field(default_factory=ExperimentConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     models: ModelsConfig = field(default_factory=ModelsConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     nerf: NerfConfig = field(default_factory=NerfConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
 
-# The render-relevant values of configs/srn-cars-code.yml, in its layout.
+# The render- and train-relevant values of configs/srn-cars-code.yml, in
+# its layout.
 SRN_CARS_CODE = {
-    "dataset": {"image_size": 128},
+    "experiment": {"regularizer_lambda": 1e-05},
+    "dataset": {"image_size": 128, "train_batch_size": 4},
     "models": {
         "nerf_coarse": {"type": "CodeNeRFModel", "hidden_size": 256},
         "nerf_fine": {"type": "CodeNeRFModel", "hidden_size": 256},
         "embedding": {"shape_code_size": 256, "texture_code_size": 256},
     },
+    "optimizer": {"type": "AdamW", "lr": 0.0001, "embedding_lr": 0.001,
+                  "scheduler_gamma": 0.1, "scheduler_step_size": 5000000},
     "nerf": {
+        "ray_sampler": {"num_random_rays": 4096},
         "point_sampler": {"num_coarse": 32, "num_fine": 128,
                           "near_limit": 0.8, "far_limit": 1.8,
                           "spacing_mode": "lindepth"},
@@ -110,7 +148,8 @@ SRN_CARS_CODE = {
         "train": {"chunksize": 4096, "radiance_field_noise_std": 0.0},
         "validation": {"chunksize": 4096, "radiance_field_noise_std": 0.0},
     },
-    "runtime": {"compute_dtype": "bfloat16"},
+    "runtime": {"compute_dtype": "bfloat16", "pallas_hybrid": False,
+                "ray_chunks": 1},
 }
 
 

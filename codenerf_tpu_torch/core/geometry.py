@@ -45,3 +45,18 @@ def pose_spherical(theta, phi, rho, dtype=torch.float32,
     c2 = torch.stack([ct * cp, ct * sp, st, zero])
     c3 = torch.stack([rho * ct * cp, rho * ct * sp, rho * st, one])
     return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def select_ray_indices(generator: torch.Generator, num_pixels: int,
+                       sample_size: int, batch_size: int) -> torch.Tensor:
+    """``sample_size`` distinct pixel indices per batch element, [B, n]
+    int64, drawn on the generator's device (JAX ``select_ray_indices``;
+    reference ray_sampler.py:71-75)."""
+    assert 0 < sample_size <= num_pixels, (
+        f"sample_size ({sample_size}) must be in (0, num_pixels="
+        f"{num_pixels}]; reduce nerf.ray_sampler.num_random_rays or use "
+        f"larger images")
+    return torch.stack([
+        torch.randperm(num_pixels, generator=generator,
+                       device=generator.device)[:sample_size]
+        for _ in range(batch_size)])

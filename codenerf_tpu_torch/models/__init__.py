@@ -3,4 +3,4 @@
 
 from codenerf_tpu_torch.models.mlp import CodeNeRFConfig, CodeNeRF  # noqa: F401
 from codenerf_tpu_torch.models.codes import (  # noqa: F401
-    CodeTables, lookup_codes, mean_codes)
+    CodeTables, code_table_norms, lookup_codes, mean_codes)

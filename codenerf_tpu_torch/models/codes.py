@@ -39,3 +39,10 @@ def mean_codes(tables: CodeTables):
     (reference eval.py:126-127)."""
     return (tables.shape_embedding.weight.mean(dim=0, keepdim=True),
             tables.texture_embedding.weight.mean(dim=0, keepdim=True))
+
+
+def code_table_norms(tables: CodeTables):
+    """L2 norm of each flattened table, for the training regularizer
+    (model.py:113-120 + train.py:107)."""
+    return (torch.linalg.norm(tables.shape_embedding.weight.reshape(-1)),
+            torch.linalg.norm(tables.texture_embedding.weight.reshape(-1)))

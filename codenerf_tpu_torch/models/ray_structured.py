@@ -1,5 +1,5 @@
 """Ray-structured CodeNeRF forward (counterpart of
-``codenerf_tpu/models/ray_structured.py``), forward only.
+``codenerf_tpu/models/ray_structured.py``).
 
 A concat matmul factors exactly, ``concat(a, b) @ W == a @ W_top +
 b @ W_bottom``, so every layer that reads [per-sample | per-ray] input
@@ -22,12 +22,40 @@ def _w(layer) -> torch.Tensor:
     return layer.weight.t()
 
 
+class _DotLP(torch.autograd.Function):
+    """x @ w with ``cd`` inputs, f32 accumulation and a ``cd`` result, and
+    JAX ``_dot_lp``'s backward: dx = g_cd @ w_cd^T accumulated in f32 and
+    cast to x's dtype, dw = x_cd^T @ g_cd accumulated in f32 and kept in
+    w's dtype.  Plain autograd through the casts would round dw (and dx
+    of an f32 x) to ``cd`` on the way back."""
+
+    @staticmethod
+    def forward(ctx, x, w, cd):
+        ctx.save_for_backward(x, w)
+        ctx.cd = cd
+        return (x.to(cd).float() @ w.to(cd).float()).to(cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cd = ctx.cd
+        gc = g.to(cd).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (gc @ w.to(cd).float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.to(cd).float().reshape(-1, x.shape[-1]).t()
+                  @ gc.reshape(-1, g.shape[-1])).to(w.dtype)
+        return dx, dw, None
+
+
 def _mm(x, w, cd):
     """x @ w with ``cd`` inputs, f32 accumulation and a ``cd`` result
-    (JAX ``_dot_lp``); plain f32 when ``cd`` is None."""
+    (JAX ``_dot_lp``, forward and backward); plain f32 when ``cd`` is
+    None."""
     if cd is None:
         return x @ w
-    return (x.to(cd).float() @ w.to(cd).float()).to(cd)
+    return _DotLP.apply(x, w, cd)
 
 
 def _lin(layer, x, cd, w=None):

@@ -4,8 +4,9 @@ Each kernel is one ``.cu`` file under ``ops/csrc/`` with a plain C entry
 point.  It is compiled by one ``nvcc`` command into a shared library under
 ``build/torch_kernels/`` at the root of the checkout and loaded with
 ``ctypes``; no PyTorch header is compiled.  The library is named by a hash
-of its source and the flags, written under a temporary name and renamed
-into place, so concurrent builds and stale outputs are harmless.
+of its source, the shared headers (``csrc/*.cuh``) and the flags, written
+under a temporary name and renamed into place, so concurrent builds and
+stale outputs are harmless, and an edited header builds a new library.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+
 def nvcc_path() -> str:
     """The ``nvcc`` on PATH, else the one under PyTorch's CUDA_HOME."""
     found = shutil.which("nvcc")
@@ -35,8 +37,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 

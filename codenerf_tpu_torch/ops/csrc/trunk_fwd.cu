@@ -36,101 +36,28 @@
 // from global memory (the ~0.6 MB of weights stay in L2).  Each 16x16
 // accumulator goes through a per-warp f32 staging tile for the epilogue
 // (rounding, per-ray row, relu).  The two narrow heads (sigma: N = 1,
-// rgb: N = 3) are per-thread f32 dot products.  A faster kernel (wgmma,
-// TMA, weights staged in shared memory) is later work.
+// rgb: N = 3) are per-thread f32 dot products.  The encode and the hidden
+// layers are in trunk_common.cuh, shared with the backward kernels
+// (trunk_bwd.cu).  A faster kernel (wgmma, TMA, weights staged in shared
+// memory) is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "trunk_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace trunk;
 
 namespace {
 
-constexpr int TM = 64;             // sample rows per block
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WN = 32;             // output columns per warp per pass
-constexpr int KX = 16;             // K of the x block: 3 coordinates, zero-padded
-constexpr int PAD = 8;             // shared-memory row padding, bf16 elements
-constexpr int LDX = KX + PAD;
-
 struct Args {
   const float* pts;    // [R*S, 3]
-  const bf16* zs1p;    // [R, H]
-  const bf16* featp;   // [R, SC]
-  const bf16* sigp;    // [R, 1]
-  const bf16* dirp;    // [R, H]
-  const bf16* zt1p;    // [R, 3]
-  const bf16* b1;      // [H]
-  const bf16* w1x;     // [KX, H], rows >= 3 zero; null without the input term
-  const bf16* w1s;     // [KP, H], rows >= 3F zero
-  const bf16* w1c;     // [KP, H], rows >= 3F zero
-  const float* bands;  // [F]
-  const bf16* w2;      // [H, H]
-  const bf16* wof;     // [H, SC]
-  const bf16* wos;     // [H]
-  const bf16* wd;      // [SC, H]
-  const bf16* wd2;     // [H, H]
-  const bf16* bd2;     // [H]
-  const bf16* wr;      // [H, 3]
+  TrunkW w;
   float* out;          // [R*S, 4]
   long long nrows;     // R*S
-  int S, H, SC, F, KP;
-  int ld;              // row stride of the activation buffers
-  int ldk;             // row stride of the sin / cos blocks
 };
-
-__device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ bf16 tob(float x) { return __float2bfloat16_rn(x); }
-// round an f32 to the nearest bf16 and back
-__device__ __forceinline__ float rb(float x) { return f32(tob(x)); }
-
-// out[TM, N] = A[TM, K] @ W[K, N], A bf16 in shared memory (row stride lda),
-// W bf16 row-major in global memory.  K % 16 == 0, N % WN == 0.  Warp w owns
-// columns [w*WN, w*WN + WN) (then + NWARPS*WN, ...) for all TM rows, and
-// epi(r, c, v) receives each f32 sum once, on a lane of the owning warp.
-template <class Epi>
-__device__ __forceinline__ void tile_gemm(const bf16* A, int lda, const bf16* W,
-                                          int K, int N, float* stage, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 256;
-  for (int n0 = warp * WN; n0 < N; n0 += NWARPS * WN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16][WN / 16];
-#pragma unroll
-    for (int i = 0; i < TM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[WN / 16];
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j)
-        wmma::load_matrix_sync(b[j], W + (size_t)k0 * N + n0 + j * 16, N);
-#pragma unroll
-      for (int i = 0; i < TM / 16; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + i * 16 * lda + k0, lda);
-#pragma unroll
-        for (int j = 0; j < WN / 16; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j) {
-        wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          epi(i * 16 + (e >> 4), n0 + j * 16 + (e & 15), st[e]);
-        __syncwarp();
-      }
-  }
-}
 
 __global__ void __launch_bounds__(NTHREADS, 2) trunk_fwd_kernel(const Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.H, SC = p.SC, ld = p.ld, ldk = p.ldk, KP = p.KP;
+  const TrunkW& w = p.w;
+  const int H = w.H, ld = w.ld, ldk = w.ldk;
   bf16* const bufA = reinterpret_cast<bf16*>(smem);
   bf16* const bufB = bufA + TM * ld;
   bf16* const encS = bufB + TM * ld;
@@ -144,86 +71,29 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_fwd_kernel(const Args p) {
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * TM;
   const long long nrows = p.nrows;
-  const bf16* const zs1p = p.zs1p;
-  const bf16* const featp = p.featp;
-  const bf16* const dirp = p.dirp;
-  const bf16* const b1 = p.b1;
-  const bf16* const bd2 = p.bd2;
 
   // rows past the end compute on zeros and are not written
   for (int i = tid; i < TM * 3; i += NTHREADS)
     pts[i] = (row0 + i / 3 < nrows) ? p.pts[row0 * 3 + i] : 0.0f;
   for (int r = tid; r < TM; r += NTHREADS) {
     const long long g = row0 + r < nrows ? row0 + r : nrows - 1;
-    ray[r] = (int)(g / p.S);
+    ray[r] = (int)(g / w.S);
   }
   __syncthreads();
 
-  // positional encode, column j = 3k + c <-> band k, coordinate c
-  const int F3 = 3 * p.F;
-  for (int i = tid; i < TM * KP; i += NTHREADS) {
-    const int r = i / KP, j = i - r * KP;
-    float s = 0.0f, c = 0.0f;
-    if (j < F3) sincosf(__fmul_rn(pts[r * 3 + j % 3], p.bands[j / 3]), &s, &c);
-    encS[r * ldk + j] = tob(s);
-    encC[r * ldk + j] = tob(c);
-  }
-  for (int i = tid; i < TM * KX; i += NTHREADS) {
-    const int r = i / KX, j = i - r * KX;
-    encX[r * LDX + j] = tob(j < 3 ? pts[r * 3 + j] : 0.0f);
-  }
-  __syncthreads();
+  encode_tile(w, pts, encS, encC, encX);
+  fwd_h1(w, encS, encC, encX, bufA, stage);       // h1: A
+  fwd_h2(w, bufA, bufB, ray, stage);              // h2: B
 
-  // layer_xyz1 as three products, summed in bf16 in the TPU kernel's order
-  auto l1_last = [=](int r, int c, float v) {
-    bf16* d = bufA + r * ld + c;
-    const float t = rb(f32(*d) + rb(v));
-    *d = tob(fmaxf(rb(t + f32(b1[c])), 0.0f));
-  };
-  tile_gemm(encS, ldk, p.w1s, KP, H, stage,
-            [=](int r, int c, float v) { bufA[r * ld + c] = tob(v); });
-  if (p.w1x != nullptr) {
-    tile_gemm(encC, ldk, p.w1c, KP, H, stage, [=](int r, int c, float v) {
-      bf16* d = bufA + r * ld + c;
-      *d = tob(f32(*d) + rb(v));
-    });
-    tile_gemm(encX, LDX, p.w1x, KX, H, stage, l1_last);
-  } else {
-    tile_gemm(encC, ldk, p.w1c, KP, H, stage, l1_last);
-  }
-  __syncthreads();
-
-  // layer_xyz2 top half + per-ray zs1p row: A -> B
-  tile_gemm(bufA, ld, p.w2, H, H, stage, [=](int r, int c, float v) {
-    const float t = rb(rb(v) + f32(zs1p[(size_t)ray[r] * H + c]));
-    bufB[r * ld + c] = tob(fmaxf(t, 0.0f));
-  });
-  __syncthreads();
-
-  // fc_out: sigma column (threads 0..TM-1) and feat columns (B -> A)
+  // fc_out's sigma column (threads 0..TM-1), then its feature columns
   if (tid < TM) {
     float acc = 0.0f;
-    for (int k = 0; k < H; ++k) acc = fmaf(f32(bufB[tid * ld + k]), f32(p.wos[k]), acc);
-    sig[tid] = rb(acc) + f32(p.sigp[ray[tid]]);
+    for (int k = 0; k < H; ++k) acc = fmaf(f32(bufB[tid * ld + k]), f32(w.wos[k]), acc);
+    sig[tid] = rb(acc) + f32(w.sigp[ray[tid]]);
   }
-  tile_gemm(bufB, ld, p.wof, H, SC, stage, [=](int r, int c, float v) {
-    bufA[r * ld + c] = tob(rb(v) + f32(featp[(size_t)ray[r] * SC + c]));
-  });
-  __syncthreads();
-
-  // layer_dir1 top half + per-ray dirp row: A -> B
-  tile_gemm(bufA, ld, p.wd, SC, H, stage, [=](int r, int c, float v) {
-    const float t = rb(rb(v) + f32(dirp[(size_t)ray[r] * H + c]));
-    bufB[r * ld + c] = tob(fmaxf(t, 0.0f));
-  });
-  __syncthreads();
-
-  // layer_dir2 + bias: B -> A
-  tile_gemm(bufB, ld, p.wd2, H, H, stage, [=](int r, int c, float v) {
-    const float t = rb(rb(v) + f32(bd2[c]));
-    bufA[r * ld + c] = tob(fmaxf(t, 0.0f));
-  });
-  __syncthreads();
+  fwd_feat(w, bufB, bufA, ray, stage);            // feat: A
+  fwd_v1(w, bufA, bufB, ray, stage);              // v1: B
+  fwd_v2(w, bufB, bufA, stage);                   // v2: A
 
   // fc_rgb top half + per-ray zt1p row, and the sigma column
   for (int i = tid; i < TM * 3; i += NTHREADS) {
@@ -231,16 +101,13 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_fwd_kernel(const Args p) {
     const long long g = row0 + r;
     if (g < nrows) {
       float acc = 0.0f;
-      for (int k = 0; k < H; ++k) acc = fmaf(f32(bufA[r * ld + k]), f32(p.wr[k * 3 + j]), acc);
-      p.out[g * 4 + j] = rb(acc) + f32(p.zt1p[(size_t)ray[r] * 3 + j]);
+      for (int k = 0; k < H; ++k) acc = fmaf(f32(bufA[r * ld + k]), f32(w.wr[k * 3 + j]), acc);
+      p.out[g * 4 + j] = rb(acc) + f32(w.zt1p[(size_t)ray[r] * 3 + j]);
     }
   }
   for (int r = tid; r < TM; r += NTHREADS)
     if (row0 + r < nrows) p.out[(row0 + r) * 4 + 3] = sig[r];
 }
-
-int kp_of(int F) { return (3 * F + 15) / 16 * 16; }
-int ld_of(int H, int SC) { return (H > SC ? H : SC) + PAD; }
 
 }  // namespace
 
@@ -270,32 +137,33 @@ int trunk_fwd(const void* pts, const void* zs1p, const void* featp, const void* 
               int F, void* stream) {
   Args p;
   p.pts = static_cast<const float*>(pts);
-  p.zs1p = static_cast<const bf16*>(zs1p);
-  p.featp = static_cast<const bf16*>(featp);
-  p.sigp = static_cast<const bf16*>(sigp);
-  p.dirp = static_cast<const bf16*>(dirp);
-  p.zt1p = static_cast<const bf16*>(zt1p);
-  p.b1 = static_cast<const bf16*>(b1);
-  p.w1x = static_cast<const bf16*>(w1x);
-  p.w1s = static_cast<const bf16*>(w1s);
-  p.w1c = static_cast<const bf16*>(w1c);
-  p.bands = static_cast<const float*>(bands);
-  p.w2 = static_cast<const bf16*>(w2);
-  p.wof = static_cast<const bf16*>(wof);
-  p.wos = static_cast<const bf16*>(wos);
-  p.wd = static_cast<const bf16*>(wd);
-  p.wd2 = static_cast<const bf16*>(wd2);
-  p.bd2 = static_cast<const bf16*>(bd2);
-  p.wr = static_cast<const bf16*>(wr);
+  TrunkW& w = p.w;
+  w.zs1p = static_cast<const bf16*>(zs1p);
+  w.featp = static_cast<const bf16*>(featp);
+  w.sigp = static_cast<const bf16*>(sigp);
+  w.dirp = static_cast<const bf16*>(dirp);
+  w.zt1p = static_cast<const bf16*>(zt1p);
+  w.b1 = static_cast<const bf16*>(b1);
+  w.w1x = static_cast<const bf16*>(w1x);
+  w.w1s = static_cast<const bf16*>(w1s);
+  w.w1c = static_cast<const bf16*>(w1c);
+  w.bands = static_cast<const float*>(bands);
+  w.w2 = static_cast<const bf16*>(w2);
+  w.wof = static_cast<const bf16*>(wof);
+  w.wos = static_cast<const bf16*>(wos);
+  w.wd = static_cast<const bf16*>(wd);
+  w.wd2 = static_cast<const bf16*>(wd2);
+  w.bd2 = static_cast<const bf16*>(bd2);
+  w.wr = static_cast<const bf16*>(wr);
   p.out = static_cast<float*>(out);
   p.nrows = (long long)R * S;
-  p.S = S;
-  p.H = H;
-  p.SC = SC;
-  p.F = F;
-  p.KP = kp_of(F);
-  p.ld = ld_of(H, SC);
-  p.ldk = p.KP + PAD;
+  w.S = S;
+  w.H = H;
+  w.SC = SC;
+  w.F = F;
+  w.KP = kp_of(F);
+  w.ld = ld_of(H, SC);
+  w.ldk = w.KP + PAD;
   const int smem = trunk_fwd_smem_bytes(H, SC, F);
   cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

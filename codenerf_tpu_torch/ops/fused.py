@@ -1,17 +1,26 @@
-"""The fused CodeNeRF trunk (counterpart of ``codenerf_tpu/ops/fused.py``,
-forward only).
+"""The fused CodeNeRF trunk (counterpart of ``codenerf_tpu/ops/fused.py``).
 
 The per-ray halves of every concat layer (code and view-direction
-conditioning) are computed outside the kernel as [R, .] products
-(``per_ray_parts``) and enter it as per-ray rows broadcast over the S
+conditioning) are computed outside the kernels as [R, .] products
+(``per_ray_parts``) and enter them as per-ray rows broadcast over the S
 samples.  The per-sample chain — positional encode, six products, bias,
 per-ray rows and relus — is one kernel, K1 (``csrc/trunk_fwd.cu``), that
-keeps every intermediate on chip.
+keeps every intermediate on chip.  Its backward is K2 (recompute the
+forward, then backpropagate) or K3 (backpropagate through activations the
+forward stored), one template in ``csrc/trunk_bwd.cu``.
 
 ``trunk_forward`` launches K1 for CUDA tensors and runs
 ``trunk_forward_plain``, which repeats the kernel's arithmetic and cast
-points in plain PyTorch, for CPU tensors.  It counts its launches in
-``trunk_forward.launches``.
+points in plain PyTorch, for CPU tensors; ``trunk_backward`` does the same
+for K2 / K3 and ``trunk_backward_plain``.  Each counts its launches
+(``trunk_forward.launches``, ``trunk_backward.launches_recompute`` and
+``.launches_stored``).
+
+Training runs through two autograd Functions, the two Pallas modes of the
+JAX package: ``TrunkFunction`` (K1 forward, K2 backward;
+``make_fused_codenerf(pallas_backward=True)``) and ``HybridTrunkFunction``
+(a plain forward that stores the bf16 activations, K3 backward;
+``make_hybrid_codenerf``).
 """
 
 from __future__ import annotations
@@ -76,43 +85,52 @@ def per_ray_parts(model: CodeNeRF, dir_enc, z_s, z_t) -> dict:
 
 
 def kernel_weights(model: CodeNeRF, num_freq_xyz: int,
-                   log_sampling_xyz: bool) -> dict:
-    """The trunk's weights in K1's layout ([in, out], the compute dtype;
-    biases stay f32 and are rounded where they are added).  Detached: K1
-    is forward only."""
+                   log_sampling_xyz: bool, train: bool = False) -> dict:
+    """The trunk's weights in K1's layout ([in, out]; biases stay f32 and
+    are rounded where they are added).  For serving they are detached and
+    cast to the compute dtype.  With ``train`` they are the f32 views of
+    the parameters, neither detached nor cast (JAX ``cast=False``), so the
+    trunk Functions' weight grads flow back through the slicing into each
+    ``nn.Linear``; the Functions cast them where the kernels do."""
     cfg = model.cfg
     cd = cfg.cdtype or torch.float32
     h = cfg.hidden_size
 
     def wc(a):
-        return None if a is None else a.detach().to(cd).contiguous()
+        if a is None or train:
+            return a
+        return a.detach().to(cd).contiguous()
 
     w1x, w1s, w1c, b1 = split_layer1(model)
     wo = _w(model.fc_out)[:h]
+    bias = (lambda b: b) if train else (lambda b: b.detach())
     return {
-        "w1x": wc(w1x), "w1s": wc(w1s), "w1c": wc(w1c), "b1": b1.detach(),
+        "w1x": wc(w1x), "w1s": wc(w1s), "w1c": wc(w1c), "b1": bias(b1),
         "E": wc(encode_matrix(num_freq_xyz, log_sampling_xyz,
                               b1.device)),
         "w2": wc(_w(model.layer_xyz2)[:h]),
         "wof": wc(wo[:, 1:]), "wos": wc(wo[:, :1]),
         "wd": wc(_w(model.layer_dir1)[:cfg.shape_code_size]),
         "wd2": wc(_w(model.layer_dir2)),
-        "bd2": model.layer_dir2.bias.detach(),
+        "bd2": bias(model.layer_dir2.bias),
         "wr": wc(_w(model.fc_rgb)[:h]),
     }
 
 
-def trunk_forward_plain(pts, per_ray: dict, weights: dict, *,
-                        compute_dtype=None):
-    """K1 in plain PyTorch: pts [R, S, 3] f32 -> raw [R, S, 4] f32, with
-    ``_trunk_kernel``'s arithmetic and cast points (fused.py:88-126)."""
-    cd = compute_dtype or torch.float32
+def _plain_chain(pts, per_ray: dict, weights: dict, cd, head_rows_in_cd):
+    """The trunk in plain PyTorch: (raw [R, S, 4] f32, activations).  K1
+    adds the sigma and rgb per-ray rows after a round to ``cd``; the JAX
+    hybrid forward (``xla_trunk``) adds them in f32."""
 
     def mm(x, w):
         return (x.to(cd).float() @ w.to(cd).float()).to(cd)
 
     def rep(name):
         return per_ray[name][:, None, :].to(cd)
+
+    def head_row(name):
+        row = rep(name) if head_rows_in_cd else per_ray[name][:, None, :]
+        return row.float()
 
     R, S = pts.shape[:2]
     # pts @ E at full f32 precision: E has one nonzero per column, so each
@@ -123,14 +141,104 @@ def trunk_forward_plain(pts, per_ray: dict, weights: dict, *,
                                                    weights["w1c"])
     if weights["w1x"] is not None:
         h = h + mm(pts, weights["w1x"])
-    h = torch.relu(h + weights["b1"].to(cd))
-    h = torch.relu(mm(h, weights["w2"]) + rep("zs1p"))
-    feat = mm(h, weights["wof"]) + rep("featp")
-    sigma = mm(h, weights["wos"]).float() + rep("sigp").float()
-    v = torch.relu(mm(feat, weights["wd"]) + rep("dirp"))
-    v = torch.relu(mm(v, weights["wd2"]) + weights["bd2"].to(cd))
-    rgb = mm(v, weights["wr"]).float() + rep("zt1p").float()
-    return torch.cat([rgb, sigma], dim=-1)
+    h1 = torch.relu(h + weights["b1"].to(cd))
+    h2 = torch.relu(mm(h1, weights["w2"]) + rep("zs1p"))
+    feat = mm(h2, weights["wof"]) + rep("featp")
+    sigma = mm(h2, weights["wos"]).float() + head_row("sigp")
+    v1 = torch.relu(mm(feat, weights["wd"]) + rep("dirp"))
+    v2 = torch.relu(mm(v1, weights["wd2"]) + weights["bd2"].to(cd))
+    rgb = mm(v2, weights["wr"]).float() + head_row("zt1p")
+    acts = {"h1": h1, "h2": h2, "feat": feat, "v1": v1, "v2": v2}
+    return torch.cat([rgb, sigma], dim=-1), acts
+
+
+def trunk_forward_plain(pts, per_ray: dict, weights: dict, *,
+                        compute_dtype=None):
+    """K1 in plain PyTorch: pts [R, S, 3] f32 -> raw [R, S, 4] f32, with
+    ``_trunk_kernel``'s arithmetic and cast points (fused.py:88-126)."""
+    return _plain_chain(pts, per_ray, weights,
+                        compute_dtype or torch.float32, True)[0]
+
+
+def hybrid_forward_plain(pts, per_ray: dict, weights: dict, *,
+                         compute_dtype=None):
+    """The JAX hybrid forward ``xla_trunk`` (fused.py:683-719) in plain
+    PyTorch: raw [R, S, 4] f32 and the activations h1 h2 feat v1 v2, each
+    [R*S, .] in the compute dtype, that K3 reads."""
+    raw, acts = _plain_chain(pts, per_ray, weights,
+                             compute_dtype or torch.float32, False)
+    return raw, {k: v.reshape(-1, v.shape[-1]) for k, v in acts.items()}
+
+
+def trunk_backward_plain(pts, per_ray: dict, b1, weights: dict, g,
+                         acts: dict | None = None, *, compute_dtype=None):
+    """K2 (or, with ``acts``, K3) in plain PyTorch: ``_trunk_bwd_impl``'s
+    arithmetic and cast points (fused.py:183-346), step by step.
+
+    Returns (g_pts [R, S, 3], per-ray grads {zs1p featp sigp dirp zt1p},
+    each [R, .], db1 [h], weight grads {w1x w1s w1c w2 wof wos wd wd2 bd2
+    wr}), all f32.
+    """
+    cd = compute_dtype or torch.float32
+    f32 = torch.float32
+    R, S = pts.shape[:2]
+    N = R * S
+
+    def mm_t(x, w):
+        # x @ w^T (the cotangent through y = x @ w): cd in, f32 sums, cd out
+        return (x.to(cd).float() @ w.to(cd).float().t()).to(cd)
+
+    def d_w(x, y):
+        # x^T @ y over all rows, cd in, f32 sums and result
+        return x.to(cd).float().t() @ y.to(cd).float()
+
+    def ray_sum(x):
+        return x.float().reshape(R, S, -1).sum(dim=1)
+
+    def live(a):
+        return a.float() > 0
+
+    bands = weights["E"][0, 0::3].float()
+    scaled = (pts[..., None, :] * bands[:, None]).reshape(N, -1)
+    sn, cs = torch.sin(scaled), torch.cos(scaled)
+    if acts is None:
+        _, a = _plain_chain(pts, per_ray, dict(weights, b1=b1), cd, True)
+        acts = {k: v.reshape(N, -1) for k, v in a.items()}
+    h1, h2, feat, v1, v2 = (acts[k] for k in ("h1", "h2", "feat", "v1",
+                                              "v2"))
+    zero = torch.zeros((), dtype=cd, device=pts.device)
+
+    g = g.reshape(N, 4).to(f32)
+    g_rgb, g_sig = g[:, :3], g[:, 3:]
+    g_v2 = torch.where(live(v2), mm_t(g_rgb, weights["wr"]), zero)
+    g_v1 = torch.where(live(v1), mm_t(g_v2, weights["wd2"]), zero)
+    g_feat = mm_t(g_v1, weights["wd"])
+    g_h2 = torch.where(live(h2), mm_t(g_feat, weights["wof"])
+                       + mm_t(g_sig, weights["wos"]), zero)
+    g_h1 = torch.where(live(h1), mm_t(g_h2, weights["w2"]), zero)
+
+    g_sn = mm_t(g_h1, weights["w1s"]).float()
+    g_cs = mm_t(g_h1, weights["w1c"]).float()
+    g_scaled = (g_sn * cs - g_cs * sn).reshape(N, -1, 3)
+    # f32 products and sums in band order: the bands reach 2^(F-1)
+    g_pts = torch.zeros((N, 3), dtype=f32, device=pts.device)
+    for k in range(bands.shape[0]):
+        g_pts = g_pts + bands[k] * g_scaled[:, k]
+    if weights["w1x"] is not None:
+        g_pts = g_pts + mm_t(g_h1, weights["w1x"]).float()
+
+    g_per_ray = {"zs1p": ray_sum(g_h2), "featp": ray_sum(g_feat),
+                 "sigp": ray_sum(g_sig), "dirp": ray_sum(g_v1),
+                 "zt1p": ray_sum(g_rgb)}
+    dweights = {
+        "w1x": (None if weights["w1x"] is None else
+                d_w(pts.reshape(N, 3), g_h1)),
+        "w1s": d_w(sn, g_h1), "w1c": d_w(cs, g_h1), "w2": d_w(h1, g_h2),
+        "wof": d_w(h2, g_feat), "wos": d_w(h2, g_sig), "wd": d_w(feat, g_v1),
+        "wd2": d_w(v1, g_v2), "bd2": g_v2.float().sum(dim=0),
+        "wr": d_w(v2, g_rgb)}
+    return (g_pts.reshape(R, S, 3), g_per_ray, g_h1.float().sum(dim=0),
+            dweights)
 
 
 @functools.cache
@@ -149,13 +257,13 @@ def _kernel_lib():
     return lib
 
 
-def _operand(t, dtype, shape, name, device):
+def _operand(t, dtype, shape, name, device, kernel="K1"):
     """Check one kernel operand; product operands must be 32-byte aligned
     for the tensor-core fragment loads."""
     if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
             or not t.is_contiguous() or t.data_ptr() % 32):
         raise ValueError(
-            f"K1 operand {name}: want a contiguous, 32-byte aligned {dtype} "
+            f"{kernel} operand {name}: want a contiguous, 32-byte aligned {dtype} "
             f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
     return t
@@ -233,6 +341,256 @@ def trunk_forward(pts, per_ray: dict, weights: dict, *, compute_dtype=None):
 trunk_forward.launches = 0
 
 
+@functools.cache
+def _bwd_lib():
+    """K2 / K3's library, built on first use, with every entry point
+    typed."""
+    lib = _build.load("trunk_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("trunk_bwd_recompute", "trunk_bwd_stored"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 4
+        fn.restype = i32
+    lib.trunk_bwd_kp.argtypes = [i32]
+    lib.trunk_bwd_kp.restype = i32
+    lib.trunk_bwd_smem_bytes.argtypes = [i32] * 3
+    lib.trunk_bwd_smem_bytes.restype = i32
+    lib.trunk_bwd_layout.argtypes = [i32] * 3 + [ptr]
+    lib.trunk_bwd_layout.restype = None
+    lib.trunk_bwd_grid.argtypes = [i32] * 5 + [ptr]
+    lib.trunk_bwd_grid.restype = i32
+    lib.trunk_bwd_error_string.argtypes = [i32]
+    lib.trunk_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+ACT_KEYS = ("h1", "h2", "feat", "v1", "v2")
+# the slab's weight grads, in trunk_bwd_layout's order
+_SLAB_KEYS = ("w1s", "w1c", "w1x", "w2", "wof", "wd", "wd2", "wos", "wr",
+              "b1", "bd2")
+
+
+def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
+    name = "K3" if acts is not None else "K2"
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{name} computes in bfloat16, not {compute_dtype}")
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = pts.device
+    if pts.dim() != 3 or pts.shape[-1] != 3:
+        raise ValueError(f"pts must be [R, S, 3], got {tuple(pts.shape)}")
+    R, S = pts.shape[:2]
+    if R == 0 or S == 0:
+        raise ValueError(f"{name} needs at least one sample, got R={R}, "
+                         f"S={S}")
+    h, sc = weights["wof"].shape
+    F = weights["w1s"].shape[0] // 3
+    if h % 32 or sc % 32:
+        raise ValueError(f"{name} needs hidden and code widths that are "
+                         f"multiples of 32, got {h} and {sc}")
+    lib = _bwd_lib()
+    smem = lib.trunk_bwd_smem_bytes(h, sc, F)
+    if smem > 232448:
+        raise ValueError(f"{name} at h={h}, s={sc}, F={F} needs {smem} B of "
+                         f"shared memory per block, above the 227 KB limit")
+    kp = lib.trunk_bwd_kp(F)
+
+    def op(t, dtype, shape, key):
+        return _operand(t, dtype, shape, key, dev, name)
+
+    ins = {"pts": op(pts, f32, (R, S, 3), "pts")}
+    for k in PER_RAY_KEYS:
+        ins[k] = op(per_ray[k].to(bf).contiguous(), bf,
+                    (R, {"featp": sc, "sigp": 1, "zt1p": 3}.get(k, h)), k)
+    ins["b1"] = op(b1.to(bf).contiguous(), bf, (h,), "b1")
+    ins["w1x"] = (None if weights["w1x"] is None else
+                  op(_padded(weights["w1x"], 16), bf, (16, h), "w1x"))
+    ins["w1s"] = op(_padded(weights["w1s"], kp), bf, (kp, h), "w1s")
+    ins["w1c"] = op(_padded(weights["w1c"], kp), bf, (kp, h), "w1c")
+    ins["bands"] = weights["E"][0, 0::3].float().contiguous()
+    for k, shape in (("w2", (h, h)), ("wof", (h, sc)), ("wos", (h, 1)),
+                     ("wd", (sc, h)), ("wd2", (h, h)), ("bd2", (h,)),
+                     ("wr", (h, 3))):
+        ins[k] = op(weights[k].to(bf).contiguous(), bf, shape, k)
+    ins["g"] = op(g.to(f32).contiguous(), f32, (R, S, 4), "g")
+    for k in ACT_KEYS:
+        ins[k] = (None if acts is None else
+                  op(acts[k], bf, (R * S, sc if k == "feat" else h), k))
+
+    layout = (ctypes.c_longlong * 12)()
+    lib.trunk_bwd_layout(h, sc, F, layout)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.trunk_bwd_grid(int(acts is not None), R, h, sc, F,
+                                 ctypes.byref(grid))
+        if err:
+            raise RuntimeError(
+                f"{name} grid query failed: CUDA error {err} "
+                f"({lib.trunk_bwd_error_string(err).decode()})")
+        total = layout[11]
+        outs = {"g_pts": torch.empty((R, S, 3), dtype=f32, device=dev),
+                "zs1p": torch.empty((R, h), dtype=f32, device=dev),
+                "featp": torch.empty((R, sc), dtype=f32, device=dev),
+                "sigp": torch.empty((R, 1), dtype=f32, device=dev),
+                "dirp": torch.empty((R, h), dtype=f32, device=dev),
+                "zt1p": torch.empty((R, 3), dtype=f32, device=dev),
+                "slabs": torch.empty((grid.value, total), dtype=f32,
+                                     device=dev),
+                "dflat": torch.empty((total,), dtype=f32, device=dev)}
+        in_order = (["pts", *PER_RAY_KEYS, "b1", "w1x", "w1s", "w1c",
+                     "bands", *WEIGHT_KEYS, "g", *ACT_KEYS])
+        in_arr = (ctypes.c_void_p * len(in_order))(
+            *(None if ins[k] is None else ins[k].data_ptr()
+              for k in in_order))
+        out_arr = (ctypes.c_void_p * len(outs))(
+            *(t.data_ptr() for t in outs.values()))
+        dims = (ctypes.c_int * 6)(R, S, h, sc, F, grid.value)
+        fn = lib.trunk_bwd_stored if acts is not None else (
+            lib.trunk_bwd_recompute)
+        err = fn(in_arr, out_arr, dims,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.trunk_bwd_error_string(err).decode()})")
+    if acts is not None:
+        trunk_backward.launches_stored += 1
+    else:
+        trunk_backward.launches_recompute += 1
+
+    flat = outs["dflat"]
+    rows = {"w1s": kp, "w1c": kp, "w1x": 16, "w2": h, "wof": h, "wd": sc,
+            "wd2": h, "wos": h, "wr": h, "b1": 1, "bd2": 1}
+    cols = {"wof": sc, "wos": 1, "wr": 3}
+    dw = {}
+    for i, k in enumerate(_SLAB_KEYS):
+        n = rows[k] * cols.get(k, h)
+        dw[k] = flat[layout[i]:layout[i] + n].view(rows[k], cols.get(k, h))
+    dw["w1s"], dw["w1c"] = dw["w1s"][:3 * F], dw["w1c"][:3 * F]
+    dw["w1x"] = dw["w1x"][:3] if weights["w1x"] is not None else None
+    db1 = dw.pop("b1")[0]
+    dw["bd2"] = dw["bd2"][0]
+    g_per_ray = {k: outs[k] for k in PER_RAY_KEYS}
+    return outs["g_pts"], g_per_ray, db1, dw
+
+
+def trunk_backward(pts, per_ray: dict, b1, weights: dict, g,
+                   acts: dict | None = None, *, compute_dtype=None):
+    """Grads of the trunk for the cotangent g [R, S, 4]: (g_pts, per-ray
+    grads, db1, weight grads), as ``trunk_backward_plain`` returns them.
+    Launches K2, or K3 when the forward's activations ``acts`` are given,
+    for CUDA tensors (bf16 compute only), and runs the plain version for
+    CPU tensors."""
+    if pts.device.type == "cuda":
+        return _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts,
+                               compute_dtype)
+    if pts.device.type == "cpu":
+        return trunk_backward_plain(pts, per_ray, b1, weights, g, acts,
+                                    compute_dtype=compute_dtype)
+    raise ValueError(f"no K2 / K3 for device {pts.device}")
+
+
+trunk_backward.launches_recompute = 0
+trunk_backward.launches_stored = 0
+
+# the trunk Functions' tensor arguments after pts, in order
+_FN_KEYS = (*PER_RAY_KEYS, "b1", "w1x", "w1s", "w1c", "E", *WEIGHT_KEYS)
+
+
+def _split_args(args):
+    named = dict(zip(_FN_KEYS, args))
+    per_ray = {k: named[k] for k in PER_RAY_KEYS}
+    return per_ray, named
+
+
+def _cast_weights(named, cd):
+    """The weights as the kernels read them: products in ``cd``; biases
+    and the encode matrix as given (they are rounded where they are
+    added)."""
+    out = {}
+    for k in ("b1", "w1x", "w1s", "w1c", "E", *WEIGHT_KEYS):
+        v = named[k]
+        if v is not None:
+            v = v.detach()
+            if k not in ("b1", "E", "bd2"):
+                v = v.to(cd or torch.float32).contiguous()
+        out[k] = v
+    return out
+
+
+def _grads(per_ray, named, g_pts, g_per_ray, db1, dw):
+    """The Functions' backward outputs, one per forward argument."""
+    out = [None, g_pts]
+    out += [g_per_ray[k].to(per_ray[k].dtype) for k in PER_RAY_KEYS]
+    for k in _FN_KEYS[len(PER_RAY_KEYS):]:
+        if k == "b1":
+            out.append(db1)
+        elif k == "E" or named[k] is None:
+            out.append(None)
+        else:
+            out.append(dw[k].reshape(named[k].shape))
+    return tuple(out)
+
+
+class TrunkFunction(torch.autograd.Function):
+    """The fused trunk with JAX ``make_fused_codenerf(pallas_backward=True)``
+    semantics: K1 forward, K2 backward (their plain versions with
+    ``kernels=False`` or for CPU tensors).  Grads flow to pts, the five
+    per-ray rows, b1 and the weights; the encode matrix E gets none."""
+
+    @staticmethod
+    def forward(ctx, opts, pts, *args):
+        cd, kernels = opts
+        per_ray, named = _split_args(args)
+        weights = _cast_weights(named, cd)
+        fwd = trunk_forward if kernels else trunk_forward_plain
+        out = fwd(pts, per_ray, weights, compute_dtype=cd)
+        ctx.opts = opts
+        ctx.save_for_backward(pts, *args)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cd, kernels = ctx.opts
+        pts, *args = ctx.saved_tensors
+        per_ray, named = _split_args(args)
+        weights = _cast_weights(named, cd)
+        bwd = trunk_backward if kernels else trunk_backward_plain
+        res = bwd(pts, per_ray, weights["b1"], weights, g,
+                  compute_dtype=cd)
+        return _grads(per_ray, named, *res)
+
+
+class HybridTrunkFunction(torch.autograd.Function):
+    """The trunk with JAX ``make_hybrid_codenerf`` semantics: the plain
+    forward of ``xla_trunk``, which stores h1 h2 feat v1 v2 in the compute
+    dtype, and K3 backward through them (its plain version with
+    ``kernels=False`` or for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, opts, pts, *args):
+        cd, kernels = opts
+        per_ray, named = _split_args(args)
+        weights = _cast_weights(named, cd)
+        with torch.no_grad():
+            out, acts = hybrid_forward_plain(pts, per_ray, weights,
+                                             compute_dtype=cd)
+        ctx.opts = opts
+        ctx.save_for_backward(pts, *args, *(acts[k] for k in ACT_KEYS))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cd, kernels = ctx.opts
+        pts, *rest = ctx.saved_tensors
+        args, act_list = rest[:len(_FN_KEYS)], rest[len(_FN_KEYS):]
+        per_ray, named = _split_args(args)
+        weights = _cast_weights(named, cd)
+        acts = dict(zip(ACT_KEYS, act_list))
+        bwd = trunk_backward if kernels else trunk_backward_plain
+        res = bwd(pts, per_ray, weights["b1"], weights, g, acts,
+                  compute_dtype=cd)
+        return _grads(per_ray, named, *res)
+
+
 def fused_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
                    num_freq_xyz: int, log_sampling_xyz: bool,
                    trunk=trunk_forward):
@@ -242,3 +600,19 @@ def fused_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
     per_ray = per_ray_parts(model, dir_enc, z_s, z_t)
     weights = kernel_weights(model, num_freq_xyz, log_sampling_xyz)
     return trunk(pts, per_ray, weights, compute_dtype=model.cfg.cdtype)
+
+
+def train_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
+                   num_freq_xyz: int, log_sampling_xyz: bool,
+                   hybrid: bool = False, kernels: bool = True):
+    """CodeNeRF raw [R, S, 4] with gradients to the model's parameters,
+    pts and the per-ray inputs: fused mode (``TrunkFunction``, K1 + K2) or,
+    with ``hybrid``, hybrid mode (``HybridTrunkFunction``, K3).
+    ``kernels=False`` runs the plain versions on any device."""
+    per_ray = per_ray_parts(model, dir_enc, z_s, z_t)
+    weights = kernel_weights(model, num_freq_xyz, log_sampling_xyz,
+                             train=True)
+    named = dict(per_ray, **weights)
+    fn = HybridTrunkFunction if hybrid else TrunkFunction
+    return fn.apply((model.cfg.cdtype, kernels), pts,
+                    *(named[k] for k in _FN_KEYS))

@@ -7,9 +7,11 @@ usual NeRF convention, and kept so on purpose (point_sampler.py:40-43):
   * ``"lindisp"``  is linear in *depth*:      z = near (1-t) + far t
   * ``"lindepth"`` is linear in *disparity*:  z = 1 / (1/near (1-t) + 1/far t)
 
-Depths carry no gradient (the reference detaches them).  This slice
-serves the deterministic render; the stratified and inverse-CDF jitter
-come with the training slice.
+Depths carry no gradient (the reference detaches them; JAX
+``stop_gradient``).  With ``perturb`` the coarse depths are jittered within
+their stratification bins and the inverse CDF is taken at uniform random
+u; the draws come from a ``torch.Generator``, or are passed in explicitly
+(``t_rand``, ``u``) so that a test can feed JAX's draws.
 """
 
 from __future__ import annotations
@@ -27,10 +29,38 @@ def base_z_vals(num_samples: int, near: float, far: float,
     return 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
 
 
-def sample_stratified(ro, rd, z_vals):
-    """Coarse samples at the base depths (point_sampler.py:49-71 without
-    jitter): ro, rd [R, 3] and z_vals [S] -> pts [R, S, 3], z [R, S]."""
-    z = z_vals.expand(ro.shape[-2], z_vals.shape[-1])
+def stratified_bins(z_vals):
+    """Lower/upper stratification bin edges (point_sampler.py:45-47)."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    return lower, upper
+
+
+def _uniform(shape, like, generator, given):
+    if given is not None:
+        return given.to(dtype=like.dtype, device=like.device)
+    if generator is None:
+        raise ValueError("perturb=True needs a generator or explicit draws")
+    return torch.rand(shape, generator=generator, dtype=like.dtype,
+                      device=like.device)
+
+
+def sample_stratified(ro, rd, z_vals, perturb: bool = False,
+                      generator: torch.Generator | None = None,
+                      t_rand=None):
+    """Coarse samples (point_sampler.py:49-71): ro, rd [R, 3] and z_vals
+    [S] -> pts [R, S, 3], z [R, S].  With ``perturb`` each depth is
+    uniform in its bin, from ``t_rand`` [R, S] or drawn from
+    ``generator``."""
+    num_rays, num_samples = ro.shape[-2], z_vals.shape[-1]
+    if perturb:
+        lower, upper = stratified_bins(z_vals)
+        t = _uniform((num_rays, num_samples), ro, generator, t_rand)
+        z = lower + (upper - lower) * t
+    else:
+        z = z_vals.expand(num_rays, num_samples)
+    z = z.detach()
     pts = ro[..., None, :] + rd[..., None, :] * z[..., :, None]
     return pts, z
 
@@ -71,7 +101,7 @@ def _prefix_sum(x, block: int = 16):
 
 
 @torch.no_grad()
-def _pdf_depths(weights, z_vals, num_fine):
+def _pdf_depths(weights, z_vals, num_fine, u=None):
     num_coarse = z_vals.shape[-1]
     if weights.shape[-1] != num_coarse - 2:
         raise ValueError(
@@ -82,9 +112,11 @@ def _pdf_depths(weights, z_vals, num_fine):
     pdf = w / _ordered_sum(w)
     cdf = _prefix_sum(pdf)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-    u = torch.linspace(0.0, 1.0, num_fine, dtype=weights.dtype,
-                       device=weights.device).expand(
-                           cdf.shape[:-1] + (num_fine,)).contiguous()
+    if u is None:
+        u = torch.linspace(0.0, 1.0, num_fine, dtype=weights.dtype,
+                           device=weights.device).expand(
+                               cdf.shape[:-1] + (num_fine,))
+    u = u.contiguous()
     # right-bracket inversion: above = first j with cdf[j] > u, clamped to
     # the last bin; below = the entry before it (cdf[0] = 0 <= u always)
     above = torch.searchsorted(cdf.contiguous(), u, right=True)
@@ -99,15 +131,21 @@ def _pdf_depths(weights, z_vals, num_fine):
     return torch.sort(torch.cat([z_vals, samples], dim=-1), dim=-1).values
 
 
-def sample_pdf(ro, rd, weights, z_vals, num_fine: int):
-    """Hierarchical importance resampling by CDF inversion at evenly
-    spaced u (point_sampler.py:73-120 without jitter).
+def sample_pdf(ro, rd, weights, z_vals, num_fine: int, perturb: bool = False,
+               generator: torch.Generator | None = None, u=None):
+    """Hierarchical importance resampling by CDF inversion
+    (point_sampler.py:73-120): at evenly spaced u, or with ``perturb`` at
+    uniform u [R, num_fine], given or drawn from ``generator``.
 
     weights: [R, S-2] interior coarse compositing weights (the caller
     passes ``weights[..., 1:-1]``, reference nerf/__init__.py:87);
     z_vals: [R, S] coarse depths.  Returns pts [R, S+num_fine, 3] and the
     sorted union of coarse and fine depths [R, S+num_fine].
     """
-    z_union = _pdf_depths(weights, z_vals, num_fine)
+    if perturb:
+        u = _uniform(weights.shape[:-1] + (num_fine,), weights, generator, u)
+    else:
+        u = None
+    z_union = _pdf_depths(weights, z_vals, num_fine, u)
     pts = ro[..., None, :] + rd[..., None, :] * z_union[..., :, None]
     return pts, z_union

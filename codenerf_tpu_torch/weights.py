@@ -34,3 +34,18 @@ def codes_from_jax(codes_np: dict) -> dict:
         "texture_embedding.weight": torch.from_numpy(
             np.array(codes_np["texture"], np.float32)),
     }
+
+
+def params_from_jax(state, params_np: dict) -> None:
+    """Load the JAX package's ``{"coarse", "fine", "codes"}`` parameters
+    (numpy views) into a ``TrainState``'s models and code tables, in
+    place, so that both packages start from the same weights."""
+    for key in ("coarse", "fine"):
+        model = state.models[key]
+        sd = codenerf_from_jax(params_np[key])
+        model.load_state_dict({k: v.to(model.layer_xyz1.weight.device)
+                               for k, v in sd.items()}, strict=True)
+    dev = state.tables.shape_embedding.weight.device
+    state.tables.load_state_dict(
+        {k: v.to(dev) for k, v in codes_from_jax(params_np["codes"]).items()},
+        strict=True)

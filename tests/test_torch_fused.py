@@ -124,3 +124,18 @@ def test_library_is_named_by_source_and_flags():
     src = (_build.CSRC / "trunk_fwd.cu").read_text()
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "__sinf" not in src.replace("__sinf /", "")
+
+
+def test_header_edit_changes_the_library_name(tmp_path, monkeypatch):
+    """K1 and K2 / K3 share trunk_common.cuh: an edited header must name
+    (and so build) a new library for both, never load a stale one."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in ("trunk_fwd", "trunk_bwd")}
+    header = csrc / "trunk_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        after = _build.library_path(name)
+        assert after != path and after.name.startswith(f"lib{name}-")

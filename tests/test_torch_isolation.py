@@ -42,8 +42,12 @@ for name in names:
 import chip_smoke
 from codenerf_tpu_torch.config import SRN_CARS_CODE, config_from_dict
 from codenerf_tpu_torch.pipeline import RenderSettings
-s = RenderSettings.from_config(config_from_dict(SRN_CARS_CODE))
+cfg = config_from_dict(SRN_CARS_CODE)
+s = RenderSettings.from_config(cfg)
 assert s.fine_cfg.hidden_size == 256 and s.num_fine == 128
+assert "codenerf_tpu_torch.train.step" in names
+assert cfg.nerf.ray_sampler.num_random_rays == 4096
+assert cfg.dataset.train_batch_size == 4 and cfg.optimizer.type == "AdamW"
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("isolated ok", len(names))
