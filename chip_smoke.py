@@ -11,11 +11,11 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
                together, into ``build/torch_kernels/``; print ptxas's
                registers and spills.
   3. kernels — K1, K2 and K3 against their plain PyTorch versions on the
-               card at the main paths' shapes (R = 4096 rays, S = 32 and
-               160): max abs error and relRMS of every output (gate 1e-2),
-               K2 / K3 bit-identical across two calls; kernel and plain
-               times (CUDA events around back-to-back calls) beside the
-               bound, K2 / K3 at the train step's R = 16384.
+               card at the main paths' shapes (the render's R = 4096 rays
+               and the train step's R = 16384, S = 32 and 160): max abs
+               error and relRMS of every output (gate 1e-2), K2 / K3
+               bit-identical across two calls; kernel and plain times
+               (CUDA events around back-to-back calls) beside the bound.
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
                with K1 (K1's launch count must rise by exactly 8), the same
                image with the plain trunk (PSNR gate 40 dB), and a 16x16
@@ -23,10 +23,10 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
   5. profile — one more render under ``torch.profiler``: device busy
                time by kernel, K1's share, the idle share.
   6. train   — the flagship train step from a seeded student with 8
-               objects on 4 targets a seeded teacher renders: one step with
-               the kernels against the same step on the plain versions
-               (gradient relRMS gate 1e-2 per leaf), then 30 steps of
-               4 x 4096 rays (launches per step, ms per step, rays/s; the
+               objects on 4 targets a seeded teacher renders: one step of
+               4 x 4096 rays with the kernels against the same step on the
+               plain versions (gradient relRMS gate 1e-2 per leaf), then 30
+               steps of 4 x 4096 rays (launches per step, ms per step, rays/s; the
                loss must fall), in fused mode (K1 + K2) and hybrid mode
                (K3); one fused step under ``torch.profiler``.
   7. result  — the kernel table as one JSON line, the card line, and the
@@ -39,6 +39,7 @@ the standard library and ``codenerf_tpu_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -53,7 +54,7 @@ from codenerf_tpu_torch.config import SRN_CARS_CODE, config_from_dict
 from codenerf_tpu_torch.core import mse2psnr, pixel_directions, pose_spherical
 from codenerf_tpu_torch.eval import make_image_renderer
 from codenerf_tpu_torch.models import CodeNeRF, CodeTables, lookup_codes
-from codenerf_tpu_torch.ops import _build
+from codenerf_tpu_torch.ops import _build, fused
 from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           kernel_weights, per_ray_parts,
                                           trunk_backward,
@@ -80,6 +81,26 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Rebind the trunk's wrappers to their plain versions, so that the
+    port's own entry points run the same path on the card without the
+    kernels."""
+    saved = fused.trunk_forward, fused.trunk_backward
+    fused.trunk_forward = fused.trunk_forward_plain
+    fused.trunk_backward = fused.trunk_backward_plain
+    try:
+        yield
+    finally:
+        fused.trunk_forward, fused.trunk_backward = saved
+
+
+def launch_counts() -> dict:
+    return {"K1": trunk_forward.launches,
+            "K2": trunk_backward.launches_recompute,
+            "K3": trunk_backward.launches_stored}
 
 
 def time_ms(fn, calls=10, repeats=5, warmup=3) -> float:
@@ -196,12 +217,12 @@ def bwd_outputs(res) -> dict:
 
 def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
     """K2 and K3 against their plain version on the card: every output at
-    R = 4096 rays, S = 32 and 160 (relRMS gate, bit-identity across two
-    calls), and times at the train step's R = len(ro) rays."""
+    R = 4096 rays and at the train step's R = len(ro) rays, S = 32 and 160
+    (relRMS gate, bit-identity across two calls), and times at the train
+    step's R."""
     cfg = model.cfg
     F = settings.num_encoding_fn_xyz
     R_step = ro.shape[0]
-    R_check = min(4096, R_step)
     viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
     dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
                                   settings.include_input_dir,
@@ -218,7 +239,7 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
         pts_all = (ro[:, None, :] + rd[:, None, :]
                    * z.cuda()[..., None]).contiguous()
         g_all = torch.randn(R_step, S, 4, generator=gen).cuda()
-        for R in (R_check, R_step):
+        for R in sorted({min(4096, R_step), R_step}):
             pts, g = pts_all[:R].contiguous(), g_all[:R].contiguous()
             per_ray = {k: v[:R] for k, v in per_ray_all.items()}
             with torch.no_grad():
@@ -234,45 +255,41 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
                                                 g, a,
                                                 compute_dtype=cfg.cdtype)
 
-                if R == R_check:
-                    got, again, want = (bwd_outputs(f())
-                                        for f in (kern, kern, plain))
-                    torch.cuda.synchronize()
-                    errs = {}
-                    for k, w in want.items():
-                        d = got[k] - w
-                        errs[k] = (float(d.abs().max()),
-                                   float(torch.linalg.norm(d)
-                                         / torch.linalg.norm(w)))
-                        if not bool(torch.isfinite(got[k]).all()):
-                            raise RuntimeError(f"{name} {k} is not finite "
-                                               f"at S={S}")
-                        if not torch.equal(got[k], again[k]):
-                            raise RuntimeError(f"{name} {k} differs between "
-                                               f"two calls at S={S}")
-                    worst = max(errs, key=lambda k: errs[k][1])
-                    print(f"{name} R={R} S={S}: every output bit-identical "
-                          f"across two calls; max_abs_err / rel_rms: "
-                          + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
-                                      for k, v in errs.items()),
-                          flush=True)
-                    if not errs[worst][1] <= REL_RMS_GATE:
-                        raise RuntimeError(
-                            f"{name} disagrees with its plain version at "
-                            f"S={S}: {worst} relRMS {errs[worst][1]} > "
-                            f"{REL_RMS_GATE}")
-                    row = {"S": S, "max_abs_err": max(
-                        v[0] for v in errs.values()),
-                        "rel_rms": errs[worst][1], "worst": worst}
-                    out[name].append(row)
-                    del got, again, want
-                else:
-                    row = out[name][-1]
+                got, again, want = (bwd_outputs(f())
+                                    for f in (kern, kern, plain))
+                torch.cuda.synchronize()
+                errs = {}
+                for k, w in want.items():
+                    d = got[k] - w
+                    errs[k] = (float(d.abs().max()),
+                               float(torch.linalg.norm(d)
+                                     / torch.linalg.norm(w)))
+                    if not bool(torch.isfinite(got[k]).all()):
+                        raise RuntimeError(f"{name} {k} is not finite at "
+                                           f"R={R}, S={S}")
+                    if not torch.equal(got[k], again[k]):
+                        raise RuntimeError(f"{name} {k} differs between "
+                                           f"two calls at R={R}, S={S}")
+                worst = max(errs, key=lambda k: errs[k][1])
+                print(f"{name} R={R} S={S}: every output bit-identical "
+                      f"across two calls; max_abs_err / rel_rms: "
+                      + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
+                                  for k, v in errs.items()), flush=True)
+                if not errs[worst][1] <= REL_RMS_GATE:
+                    raise RuntimeError(
+                        f"{name} disagrees with its plain version at R={R}, "
+                        f"S={S}: {worst} relRMS {errs[worst][1]} > "
+                        f"{REL_RMS_GATE}")
+                row = {"R": R, "S": S,
+                       "max_abs_err": max(v[0] for v in errs.values()),
+                       "rel_rms": errs[worst][1], "worst": worst}
+                del got, again, want
+                if R == R_step:
                     ms = time_ms(kern, calls=3, repeats=5, warmup=1)
                     plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
                     cost = bwd_cost(R, S, weights, per_ray, F, a is not None)
                     b_ms, b_by = bound_ms(cost)
-                    row.update({"R": R, "ms": ms, "plain_ms": plain_ms,
+                    row.update({"ms": ms, "plain_ms": plain_ms,
                                 "bound_ms": b_ms, "bound_by": b_by,
                                 "cost": cost})
                     print(f"{name} R={R} S={S}: ms={ms:.6g} "
@@ -280,6 +297,7 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
                           f"({b_by}) achieved="
                           f"{cost['bf16_flops'] / ms / 1e9:.6g} TFLOP/s "
                           f"on {card}", flush=True)
+                out[name].append(row)
             del acts
             torch.cuda.empty_cache()
     return out
@@ -290,8 +308,9 @@ def phase(name, t0):
           flush=True)
 
 
-def check_k1(settings, model, ro, rd, zs, zt, card) -> dict:
-    """K1 vs its plain version on the card at the main path's shapes."""
+def check_k1(settings, model, ro, rd, zs, zt, chunk, card) -> dict:
+    """K1 vs its plain version on the card at the main paths' shapes: the
+    render's R = ``chunk`` rays and the train step's R = len(ro)."""
     cfg = model.cfg
     F = settings.num_encoding_fn_xyz
     viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
@@ -299,47 +318,56 @@ def check_k1(settings, model, ro, rd, zs, zt, card) -> dict:
                                   settings.include_input_dir,
                                   settings.log_sampling_dir)
     with torch.no_grad():
-        per_ray = per_ray_parts(model, dir_enc, zs, zt)
+        per_ray_all = per_ray_parts(model, dir_enc, zs, zt)
         weights = kernel_weights(model, F, settings.log_sampling_xyz)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    R = ro.shape[0]
+    R_step = ro.shape[0]
     shapes = []
     for S in (settings.num_coarse, settings.num_coarse + settings.num_fine):
         z = torch.sort(settings.near + (settings.far - settings.near)
-                       * torch.rand(R, S, generator=gen), dim=-1).values
-        pts = (ro[:, None, :] + rd[:, None, :] * z.cuda()[..., None])
-        pts = pts.contiguous()
+                       * torch.rand(R_step, S, generator=gen), dim=-1).values
+        pts_all = (ro[:, None, :] + rd[:, None, :] * z.cuda()[..., None])
+        for R in sorted({chunk, R_step}):
+            pts = pts_all[:R].contiguous()
+            per_ray = {k: v[:R] for k, v in per_ray_all.items()}
 
-        def kern():
-            return trunk_forward(pts, per_ray, weights,
-                                 compute_dtype=cfg.cdtype)
+            def kern():
+                return trunk_forward(pts, per_ray, weights,
+                                     compute_dtype=cfg.cdtype)
 
-        def plain():
-            return trunk_forward_plain(pts, per_ray, weights,
-                                       compute_dtype=cfg.cdtype)
+            def plain():
+                return trunk_forward_plain(pts, per_ray, weights,
+                                           compute_dtype=cfg.cdtype)
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"K1 output is not finite at S={S}")
-        err = (got - want).abs()
-        rel_rms = float(torch.linalg.norm(got - want)
-                        / torch.linalg.norm(want))
-        ms, plain_ms = time_ms(kern), time_ms(plain, calls=3)
-        cost = k1_cost(R, S, weights, per_ray, F)
-        b_ms, b_by = bound_ms(cost)
-        row = {"R": R, "S": S, "max_abs_err": float(err.max()),
-               "rel_rms": rel_rms, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "cost": cost}
-        print(f"K1 R={R} S={S}: max_abs_err={row['max_abs_err']:.6g} "
-              f"rel_rms={rel_rms:.6g} ms={ms:.6g} plain_ms={plain_ms:.6g} "
-              f"bound_ms={b_ms:.6g} ({b_by}) "
-              f"achieved={cost['bf16_flops'] / ms / 1e9:.6g} TFLOP/s "
-              f"on {card}", flush=True)
-        if not rel_rms <= REL_RMS_GATE:
-            raise RuntimeError(f"K1 disagrees with its plain version at "
-                               f"S={S}: relRMS {rel_rms} > {REL_RMS_GATE}")
-        shapes.append(row)
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"K1 output is not finite at R={R}, "
+                                   f"S={S}")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"K1 output differs between two calls "
+                                   f"at R={R}, S={S}")
+            err = (got - want).abs()
+            rel_rms = float(torch.linalg.norm(got - want)
+                            / torch.linalg.norm(want))
+            del got, again, want
+            ms, plain_ms = time_ms(kern), time_ms(plain, calls=3)
+            cost = k1_cost(R, S, weights, per_ray, F)
+            b_ms, b_by = bound_ms(cost)
+            row = {"R": R, "S": S, "max_abs_err": float(err.max()),
+                   "rel_rms": rel_rms, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "cost": cost}
+            print(f"K1 R={R} S={S}: max_abs_err={row['max_abs_err']:.6g} "
+                  f"rel_rms={rel_rms:.6g}, bit-identical across two calls; "
+                  f"ms={ms:.6g} plain_ms={plain_ms:.6g} "
+                  f"bound_ms={b_ms:.6g} ({b_by}) "
+                  f"achieved={cost['bf16_flops'] / ms / 1e9:.6g} TFLOP/s "
+                  f"on {card}", flush=True)
+            if not rel_rms <= REL_RMS_GATE:
+                raise RuntimeError(f"K1 disagrees with its plain version at "
+                                   f"R={R}, S={S}: relRMS {rel_rms} > "
+                                   f"{REL_RMS_GATE}")
+            shapes.append(row)
     return {"shapes": shapes}
 
 
@@ -377,31 +405,40 @@ def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
     for mode in ("fused", "hybrid"):
         s_mode = dataclasses.replace(settings,
                                      pallas_hybrid=mode == "hybrid")
-        # (a) one step with the kernels and one on the plain versions, from
-        # the same state and generator seed, at 1 x n_rays rays
+        # (a) one step of B x n_rays rays with the kernels and one on the
+        # plain versions, from the same state and generator seed
         grads, losses = {}, {}
         for kernels in (True, False):
             st = init_train_state(cfg, s_mode, n_objects, seed=SEED + 2,
                                   device="cuda")
-            step = make_train_step(s_mode, st, n_rays, lam, True,
-                                   kernels=kernels)
+            step = make_train_step(s_mode, st, n_rays, lam, True)
             gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-            m = step(dirs, poses[:1], pixels[:1], ids[:1], gen)
+            before = launch_counts()
+            with (contextlib.nullcontext() if kernels
+                  else plain_versions()):
+                m = step(dirs, poses, pixels, ids, gen)
             torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
+            if (sum(launched.values()) > 0) != kernels:
+                raise RuntimeError(f"train {mode} (a): kernels={kernels} "
+                                   f"launched {launched}")
             grads[kernels], losses[kernels] = grads_of(st), float(m.loss)
             if kernels:
                 student = st
             else:
                 del st, step
-                torch.cuda.empty_cache()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
         rel = {n: float(torch.linalg.norm(grads[True][n] - g)
                         / torch.linalg.norm(g))
                for n, g in grads[False].items() if float(g.norm()) > 0}
         worst = max(rel, key=rel.get)
-        print(f"train {mode} (a): loss kernels={losses[True]:.8g} "
-              f"plain={losses[False]:.8g}; gradient relRMS over "
-              f"{len(rel)} leaves: worst {worst} {rel[worst]:.4g}, median "
-              f"{statistics.median(rel.values()):.4g}", flush=True)
+        print(f"train {mode} (a): {B * n_rays} rays: loss kernels="
+              f"{losses[True]:.8g} plain={losses[False]:.8g}; gradient "
+              f"relRMS over {len(rel)} leaves: worst {worst} "
+              f"{rel[worst]:.4g}, median "
+              f"{statistics.median(rel.values()):.4g}; peak memory so far "
+              f"{peak_gb:.3g} GiB", flush=True)
         if not rel[worst] <= REL_RMS_GATE:
             raise RuntimeError(f"train {mode}: {worst} gradient relRMS "
                                f"{rel[worst]} > {REL_RMS_GATE}")
@@ -425,9 +462,7 @@ def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
             fine.append(m.loss_fine)
             total.append(m.loss)
-        counts = {"K1": trunk_forward.launches,
-                  "K2": trunk_backward.launches_recompute,
-                  "K3": trunk_backward.launches_stored}
+        counts = launch_counts()
         fine = [float(v) for v in fine]
         total = [float(v) for v in total]
         step_ms = statistics.median(ms)
@@ -531,12 +566,17 @@ def main():
     dirs = directions(size)
     rd_all = torch.einsum("hwi,ji->hwj", dirs, pose[:3, :3]).reshape(-1, 3)
     ro_all = pose[:3, 3].expand_as(rd_all)
-    k1 = check_k1(settings, models["fine"], ro_all[:chunk].contiguous(),
-                  rd_all[:chunk].contiguous(),
-                  z_s.expand(chunk, -1), z_t.expand(chunk, -1), card)
-    bwd = check_bwd(settings, models["fine"], ro_all.contiguous(),
-                    rd_all.contiguous(), z_s.expand(len(rd_all), -1),
-                    z_t.expand(len(rd_all), -1), card)
+    n_step = (cfg.dataset.train_batch_size
+              * cfg.nerf.ray_sampler.num_random_rays)
+    if n_step > len(rd_all):
+        raise RuntimeError(f"the kernel checks take the train step's "
+                           f"{n_step} rays from one {size}x{size} image")
+    k1 = check_k1(settings, models["fine"], ro_all[:n_step].contiguous(),
+                  rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
+                  z_t.expand(n_step, -1), chunk, card)
+    bwd = check_bwd(settings, models["fine"], ro_all[:n_step].contiguous(),
+                    rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
+                    z_t.expand(n_step, -1), card)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -567,15 +607,17 @@ def main():
         img_ms.append((time.perf_counter() - t_r) * 1e3)
     ms_img = statistics.median(img_ms)
 
-    render_plain = make_image_renderer(settings, size, size, chunk, "cuda",
-                                       trunk=trunk_forward_plain)
     plain_ms_img = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t_r = time.perf_counter()
-        img_plain = render_plain(models, dirs, pose, z_s, z_t)
-        torch.cuda.synchronize()
-        plain_ms_img.append((time.perf_counter() - t_r) * 1e3)
+    before = trunk_forward.launches
+    with plain_versions():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t_r = time.perf_counter()
+            img_plain = render(models, dirs, pose, z_s, z_t)
+            torch.cuda.synchronize()
+            plain_ms_img.append((time.perf_counter() - t_r) * 1e3)
+    if trunk_forward.launches != before:
+        raise RuntimeError("the plain-trunk render launched K1")
     psnr = float(mse2psnr(torch.mean((img - img_plain) ** 2)))
     print(f"render {size}x{size}: K1 launches={launches} "
           f"first={first_ms:.6g} ms median={ms_img:.6g} ms/image "
@@ -621,13 +663,18 @@ def main():
     train = train_phase(cfg, settings, models, tables, dirs, card)
     phase("train", t0)
 
-    # one image runs each shape once per chunk
-    def per_image(key):
-        return n_chunks * sum(s[key] for s in k1["shapes"])
+    # one image runs each S once per chunk at R = chunk; one train step
+    # runs each S once at R = n_step
+    def per_call(R):
+        rows = [s for s in k1["shapes"] if s["R"] == R]
+        cost = {k: sum(s["cost"][k] for s in rows) for k in rows[0]["cost"]}
+        return ({k: sum(s[k] for s in rows) for k in ("ms", "plain_ms")},
+                cost)
 
-    image_cost = {k: n_chunks * sum(s["cost"][k] for s in k1["shapes"])
-                  for k in k1["shapes"][0]["cost"]}
+    image, image_cost = per_call(chunk)
+    image_cost = {k: n_chunks * v for k, v in image_cost.items()}
     image_bound_ms, image_bound_by = bound_ms(image_cost)
+    step_k1, step_k1_cost = per_call(n_step)
     kernels = [{
         "name": "K1 trunk_fwd",
         "route": "cuda",
@@ -635,18 +682,21 @@ def main():
         "replaces": "codenerf_tpu/ops/fused.py:75",
         "launches": launches,
         "max_abs_err": max(s["max_abs_err"] for s in k1["shapes"]),
-        "ms": per_image("ms"),
-        "plain_ms": per_image("plain_ms"),
+        "ms": n_chunks * image["ms"],
+        "plain_ms": n_chunks * image["plain_ms"],
         "bound_ms": image_bound_ms,
         "bound_by": image_bound_by,
         "library_ms": None,
         "per": f"one {size}x{size} image: {n_chunks} launches at each S of "
-               f"{[s['S'] for s in k1['shapes']]}, R={chunk}",
+               f"{sorted({s['S'] for s in k1['shapes']})}, R={chunk}",
         "launches_per_train_step": train["fused"]["launches_per_step"]["K1"],
+        "train_step_ms": step_k1["ms"],
+        "train_step_plain_ms": step_k1["plain_ms"],
+        "train_step_bound_ms": bound_ms(step_k1_cost)[0],
         "shapes": k1["shapes"],
     }]
     for name, mode in (("K2", "fused"), ("K3", "hybrid")):
-        rows = bwd[name]
+        rows = [r for r in bwd[name] if r["R"] == n_step]
         cost = {k: sum(r["cost"][k] for r in rows) for k in rows[0]["cost"]}
         b_ms, b_by = bound_ms(cost)
         kernels.append({
@@ -656,8 +706,8 @@ def main():
             "replaces": "codenerf_tpu/ops/fused.py:183",
             "launches": train[mode]["launches"][name],
             "launches_per_train_step": train[mode]["launches_per_step"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "rel_rms": max(r["rel_rms"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
+            "rel_rms": max(r["rel_rms"] for r in bwd[name]),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": b_ms,
@@ -668,7 +718,7 @@ def main():
             "per": f"one flagship train step ({mode} mode): one launch at "
                    f"each S of {[r['S'] for r in rows]}, R={rows[0]['R']}; "
                    f"launches counted over {TRAIN_STEPS} steps",
-            "shapes": rows,
+            "shapes": bwd[name],
         })
     print(json.dumps({"train": {m: {k: v for k, v in r.items()
                                     if k != "profile"}

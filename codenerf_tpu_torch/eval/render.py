@@ -15,19 +15,16 @@ import torch
 
 from codenerf_tpu_torch.core.geometry import ray_bundle
 from codenerf_tpu_torch.device import resolve_device
-from codenerf_tpu_torch.ops.fused import trunk_forward
 from codenerf_tpu_torch.pipeline import RenderSettings, render_rays
 
 
 def make_image_renderer(settings: RenderSettings, height: int, width: int,
-                        chunksize: int = 4096, device="cuda",
-                        trunk=trunk_forward) -> Callable:
+                        chunksize: int = 4096, device="cuda") -> Callable:
     """Build a full-image renderer on ``device``.
 
     Returned signature: ``render_image(models, directions, pose, z_s, z_t)
     -> rgb [H*W, 3]`` with ``models`` {"coarse", "fine"} on ``device``,
     ``directions`` [H, W, 3], ``pose`` [4, 4] and codes [1, C].
-    ``trunk`` is K1's wrapper unless the caller passes its plain version.
     """
     dev = resolve_device(device)
     num_rays = height * width
@@ -45,8 +42,7 @@ def make_image_renderer(settings: RenderSettings, height: int, width: int,
         rgb = []
         for i in range(num_chunks):
             sl = slice(i * chunksize, (i + 1) * chunksize)
-            _, out_f = render_rays(models, settings, ro[sl], rd[sl], zs, zt,
-                                   trunk=trunk)
+            _, out_f = render_rays(models, settings, ro[sl], rd[sl], zs, zt)
             rgb.append(out_f.rgb)
         return torch.cat(rgb)[:num_rays]
 

@@ -509,13 +509,20 @@ int trunk_bwd_kp(int F) { return kp_of(F); }
 
 int trunk_bwd_smem_bytes(int H, int SC, int F) { return smem_bytes(H, SC, F); }
 
-// The slab layout: offsets of dw1s dw1c dw1x dw2 dwof dwd dwd2 dwos dwr db1
-// dbd2, then the slab's length, all in floats.
+// The names of the slab's weight grads, in trunk_bwd_layout's order.
+const char* trunk_bwd_layout_keys() { return "w1s w1c w1x w2 wof wd wd2 wos wr b1 bd2"; }
+
+// The slab layout: for each grad of trunk_bwd_layout_keys, its offset, rows
+// and columns (a row-major block, rows padded as the kernel reads the
+// weight), then the slab's length, all in floats: 34 values.
 void trunk_bwd_layout(int H, int SC, int F, long long* out) {
   const Layout L = layout_of(H, SC, F);
-  const long long v[12] = {L.dw1s, L.dw1c, L.dw1x, L.dw2,  L.dwof, L.dwd,
-                           L.dwd2, L.dwos, L.dwr,  L.db1, L.dbd2, L.total};
-  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  const long long KP = kp_of(F);
+  const long long v[34] = {L.dw1s, KP, H,  L.dw1c, KP, H,  L.dw1x, KX, H,
+                           L.dw2,  H,  H,  L.dwof, H,  SC, L.dwd,  SC, H,
+                           L.dwd2, H,  H,  L.dwos, H,  1,  L.dwr,  H,  3,
+                           L.db1,  1,  H,  L.dbd2, 1,  H,  L.total};
+  for (int i = 0; i < 34; ++i) out[i] = v[i];
 }
 
 // Blocks of the persistent grid (one slab each) for R rays on the current

@@ -21,6 +21,12 @@ JAX package: ``TrunkFunction`` (K1 forward, K2 backward;
 ``make_fused_codenerf(pallas_backward=True)``) and ``HybridTrunkFunction``
 (a plain forward that stores the bf16 activations, K3 backward;
 ``make_hybrid_codenerf``).
+
+``fused_codenerf`` and the Functions reach the wrappers through this
+module's names ``trunk_forward`` and ``trunk_backward`` when they run, so
+a caller that rebinds those names to the plain versions runs the same
+path on CUDA tensors without the kernels (``chip_smoke.py`` does, to
+compare).
 """
 
 from __future__ import annotations
@@ -355,6 +361,8 @@ def _bwd_lib():
     lib.trunk_bwd_kp.restype = i32
     lib.trunk_bwd_smem_bytes.argtypes = [i32] * 3
     lib.trunk_bwd_smem_bytes.restype = i32
+    lib.trunk_bwd_layout_keys.argtypes = []
+    lib.trunk_bwd_layout_keys.restype = ctypes.c_char_p
     lib.trunk_bwd_layout.argtypes = [i32] * 3 + [ptr]
     lib.trunk_bwd_layout.restype = None
     lib.trunk_bwd_grid.argtypes = [i32] * 5 + [ptr]
@@ -365,9 +373,6 @@ def _bwd_lib():
 
 
 ACT_KEYS = ("h1", "h2", "feat", "v1", "v2")
-# the slab's weight grads, in trunk_bwd_layout's order
-_SLAB_KEYS = ("w1s", "w1c", "w1x", "w2", "wof", "wd", "wd2", "wos", "wr",
-              "b1", "bd2")
 
 
 def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
@@ -416,7 +421,8 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
         ins[k] = (None if acts is None else
                   op(acts[k], bf, (R * S, sc if k == "feat" else h), k))
 
-    layout = (ctypes.c_longlong * 12)()
+    slab_keys = lib.trunk_bwd_layout_keys().decode().split()
+    layout = (ctypes.c_longlong * (3 * len(slab_keys) + 1))()
     lib.trunk_bwd_layout(h, sc, F, layout)
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -426,7 +432,7 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
             raise RuntimeError(
                 f"{name} grid query failed: CUDA error {err} "
                 f"({lib.trunk_bwd_error_string(err).decode()})")
-        total = layout[11]
+        total = layout[3 * len(slab_keys)]
         outs = {"g_pts": torch.empty((R, S, 3), dtype=f32, device=dev),
                 "zs1p": torch.empty((R, h), dtype=f32, device=dev),
                 "featp": torch.empty((R, sc), dtype=f32, device=dev),
@@ -456,18 +462,15 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
     else:
         trunk_backward.launches_recompute += 1
 
-    flat = outs["dflat"]
-    rows = {"w1s": kp, "w1c": kp, "w1x": 16, "w2": h, "wof": h, "wd": sc,
-            "wd2": h, "wos": h, "wr": h, "b1": 1, "bd2": 1}
-    cols = {"wof": sc, "wos": 1, "wr": 3}
-    dw = {}
-    for i, k in enumerate(_SLAB_KEYS):
-        n = rows[k] * cols.get(k, h)
-        dw[k] = flat[layout[i]:layout[i] + n].view(rows[k], cols.get(k, h))
-    dw["w1s"], dw["w1c"] = dw["w1s"][:3 * F], dw["w1c"][:3 * F]
-    dw["w1x"] = dw["w1x"][:3] if weights["w1x"] is not None else None
-    db1 = dw.pop("b1")[0]
-    dw["bd2"] = dw["bd2"][0]
+    # each grad's block of the reduced slab, cut to its weight's shape
+    flat, dw = outs["dflat"], {}
+    for i, k in enumerate(slab_keys):
+        off, rows, cols = layout[3 * i:3 * i + 3]
+        block = flat[off:off + rows * cols].view(rows, cols)
+        want = b1 if k == "b1" else weights[k]
+        dw[k] = (None if want is None else block[0] if want.dim() == 1
+                 else block[:want.shape[0]])
+    db1 = dw.pop("b1")
     g_per_ray = {k: outs[k] for k in PER_RAY_KEYS}
     return outs["g_pts"], g_per_ray, db1, dw
 
@@ -532,87 +535,78 @@ def _grads(per_ray, named, g_pts, g_per_ray, db1, dw):
 
 class TrunkFunction(torch.autograd.Function):
     """The fused trunk with JAX ``make_fused_codenerf(pallas_backward=True)``
-    semantics: K1 forward, K2 backward (their plain versions with
-    ``kernels=False`` or for CPU tensors).  Grads flow to pts, the five
-    per-ray rows, b1 and the weights; the encode matrix E gets none."""
+    semantics: K1 forward, K2 backward (their plain versions for CPU
+    tensors).  Grads flow to pts, the five per-ray rows, b1 and the
+    weights; the encode matrix E gets none."""
 
     @staticmethod
-    def forward(ctx, opts, pts, *args):
-        cd, kernels = opts
+    def forward(ctx, cd, pts, *args):
         per_ray, named = _split_args(args)
         weights = _cast_weights(named, cd)
-        fwd = trunk_forward if kernels else trunk_forward_plain
-        out = fwd(pts, per_ray, weights, compute_dtype=cd)
-        ctx.opts = opts
+        out = trunk_forward(pts, per_ray, weights, compute_dtype=cd)
+        ctx.cd = cd
         ctx.save_for_backward(pts, *args)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        cd, kernels = ctx.opts
         pts, *args = ctx.saved_tensors
         per_ray, named = _split_args(args)
-        weights = _cast_weights(named, cd)
-        bwd = trunk_backward if kernels else trunk_backward_plain
-        res = bwd(pts, per_ray, weights["b1"], weights, g,
-                  compute_dtype=cd)
+        weights = _cast_weights(named, ctx.cd)
+        res = trunk_backward(pts, per_ray, weights["b1"], weights, g,
+                             compute_dtype=ctx.cd)
         return _grads(per_ray, named, *res)
 
 
 class HybridTrunkFunction(torch.autograd.Function):
     """The trunk with JAX ``make_hybrid_codenerf`` semantics: the plain
     forward of ``xla_trunk``, which stores h1 h2 feat v1 v2 in the compute
-    dtype, and K3 backward through them (its plain version with
-    ``kernels=False`` or for CPU tensors)."""
+    dtype, and K3 backward through them (its plain version for CPU
+    tensors)."""
 
     @staticmethod
-    def forward(ctx, opts, pts, *args):
-        cd, kernels = opts
+    def forward(ctx, cd, pts, *args):
         per_ray, named = _split_args(args)
         weights = _cast_weights(named, cd)
         with torch.no_grad():
             out, acts = hybrid_forward_plain(pts, per_ray, weights,
                                              compute_dtype=cd)
-        ctx.opts = opts
+        ctx.cd = cd
         ctx.save_for_backward(pts, *args, *(acts[k] for k in ACT_KEYS))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        cd, kernels = ctx.opts
         pts, *rest = ctx.saved_tensors
         args, act_list = rest[:len(_FN_KEYS)], rest[len(_FN_KEYS):]
         per_ray, named = _split_args(args)
-        weights = _cast_weights(named, cd)
+        weights = _cast_weights(named, ctx.cd)
         acts = dict(zip(ACT_KEYS, act_list))
-        bwd = trunk_backward if kernels else trunk_backward_plain
-        res = bwd(pts, per_ray, weights["b1"], weights, g, acts,
-                  compute_dtype=cd)
+        res = trunk_backward(pts, per_ray, weights["b1"], weights, g, acts,
+                             compute_dtype=ctx.cd)
         return _grads(per_ray, named, *res)
 
 
 def fused_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
-                   num_freq_xyz: int, log_sampling_xyz: bool,
-                   trunk=trunk_forward):
+                   num_freq_xyz: int, log_sampling_xyz: bool):
     """CodeNeRF raw [R, S, 4] through the fused trunk (the forward of JAX
     ``make_fused_codenerf``): per-ray rows, kernel weights, then
-    ``trunk`` (K1's wrapper unless the caller passes its plain version)."""
+    ``trunk_forward``."""
     per_ray = per_ray_parts(model, dir_enc, z_s, z_t)
     weights = kernel_weights(model, num_freq_xyz, log_sampling_xyz)
-    return trunk(pts, per_ray, weights, compute_dtype=model.cfg.cdtype)
+    return trunk_forward(pts, per_ray, weights,
+                         compute_dtype=model.cfg.cdtype)
 
 
 def train_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
                    num_freq_xyz: int, log_sampling_xyz: bool,
-                   hybrid: bool = False, kernels: bool = True):
+                   hybrid: bool = False):
     """CodeNeRF raw [R, S, 4] with gradients to the model's parameters,
     pts and the per-ray inputs: fused mode (``TrunkFunction``, K1 + K2) or,
-    with ``hybrid``, hybrid mode (``HybridTrunkFunction``, K3).
-    ``kernels=False`` runs the plain versions on any device."""
+    with ``hybrid``, hybrid mode (``HybridTrunkFunction``, K3)."""
     per_ray = per_ray_parts(model, dir_enc, z_s, z_t)
     weights = kernel_weights(model, num_freq_xyz, log_sampling_xyz,
                              train=True)
     named = dict(per_ray, **weights)
     fn = HybridTrunkFunction if hybrid else TrunkFunction
-    return fn.apply((model.cfg.cdtype, kernels), pts,
-                    *(named[k] for k in _FN_KEYS))
+    return fn.apply(model.cfg.cdtype, pts, *(named[k] for k in _FN_KEYS))

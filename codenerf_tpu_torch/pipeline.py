@@ -22,8 +22,7 @@ import torch
 from codenerf_tpu_torch.config import Config, EmbedderConfig, ModelSpec
 from codenerf_tpu_torch.core.encoding import positional_encoding
 from codenerf_tpu_torch.models.mlp import CodeNeRF, CodeNeRFConfig
-from codenerf_tpu_torch.ops.fused import (fused_codenerf, train_codenerf,
-                                          trunk_forward)
+from codenerf_tpu_torch.ops.fused import fused_codenerf, train_codenerf
 from codenerf_tpu_torch.ops.sampling import (base_z_vals, sample_pdf,
                                              sample_stratified)
 from codenerf_tpu_torch.ops.volume_render import RenderOutputs, volume_render
@@ -106,11 +105,10 @@ class RenderSettings:
 
 
 def _forward(model: CodeNeRF, settings: RenderSettings, pts, rd, z_s, z_t,
-             trunk=trunk_forward, mode=None, kernels=True):
+             mode=None):
     """encode -> CodeNeRF over [R, S] samples through the fused trunk:
-    grad-free through ``trunk`` (``mode`` None), or with gradients in
-    ``mode`` "fused" or "hybrid" (``kernels=False``: on the plain
-    versions)."""
+    grad-free (``mode`` None), or with gradients in ``mode`` "fused" or
+    "hybrid"."""
     viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
     dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
                                   settings.include_input_dir,
@@ -118,22 +116,19 @@ def _forward(model: CodeNeRF, settings: RenderSettings, pts, rd, z_s, z_t,
     kw = dict(num_freq_xyz=settings.num_encoding_fn_xyz,
               log_sampling_xyz=settings.log_sampling_xyz)
     if mode is None:
-        return fused_codenerf(model, pts, dir_enc, z_s, z_t, trunk=trunk,
-                              **kw)
+        return fused_codenerf(model, pts, dir_enc, z_s, z_t, **kw)
     return train_codenerf(model, pts, dir_enc, z_s, z_t,
-                          hybrid=mode == "hybrid", kernels=kernels, **kw)
+                          hybrid=mode == "hybrid", **kw)
 
 
 @torch.no_grad()
 def render_rays(models: dict, settings: RenderSettings, ro, rd, z_s, z_t,
-                perturb: bool = False, noise_std: float = 0.0,
-                trunk=trunk_forward) -> Tuple[RenderOutputs, RenderOutputs]:
+                perturb: bool = False, noise_std: float = 0.0
+                ) -> Tuple[RenderOutputs, RenderOutputs]:
     """Coarse -> importance -> fine render of a ray batch, grad-free.
 
     models: {"coarse": CodeNeRF, "fine": CodeNeRF}; ro, rd: [R, 3]; z_s,
-    z_t: [R, C] per-ray codes.  ``trunk`` is K1's wrapper; the chip smoke
-    passes its plain version to render the same image without the kernel.
-    Returns (coarse, fine) RenderOutputs.
+    z_t: [R, C] per-ray codes.  Returns (coarse, fine) RenderOutputs.
     """
     if perturb or noise_std > 0.0:
         raise NotImplementedError(
@@ -148,13 +143,13 @@ def render_rays(models: dict, settings: RenderSettings, ro, rd, z_s, z_t,
                          settings.spacing_mode, dtype=ro.dtype,
                          device=ro.device)
     pts_c, z_c = sample_stratified(ro, rd, z_grid)
-    raw_c = _forward(models["coarse"], settings, pts_c, rd, z_s, z_t, trunk)
+    raw_c = _forward(models["coarse"], settings, pts_c, rd, z_s, z_t)
     out_c = volume_render(raw_c, z_c, rd,
                           white_background=settings.white_background)
     # interior-weight slice per reference nerf/__init__.py:87
     pts_f, z_f = sample_pdf(ro, rd, out_c.weights[..., 1:-1], z_c,
                             settings.num_fine)
-    raw_f = _forward(models["fine"], settings, pts_f, rd, z_s, z_t, trunk)
+    raw_f = _forward(models["fine"], settings, pts_f, rd, z_s, z_t)
     out_f = volume_render(raw_f, z_f, rd,
                           white_background=settings.white_background)
     return out_c, out_f
@@ -169,7 +164,7 @@ def add_sigma_noise(raw, noise):
 def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
                       z_t, generator: Optional[torch.Generator] = None,
                       perturb: bool = True, noise_std: float = 0.0,
-                      kernels: bool = True, draws: Optional[dict] = None
+                      draws: Optional[dict] = None
                       ) -> Tuple[RenderOutputs, RenderOutputs]:
     """Coarse -> importance -> fine render with gradients (JAX
     ``render_rays``, pipeline.py:252-334).
@@ -180,7 +175,7 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
     the order coarse jitter, coarse noise, fine u, fine noise, or from
     ``draws`` ({"t_rand", "u", "noise_c", "noise_f"}) so that a test can
     feed JAX's.  The trunk runs in fused mode, or hybrid mode when
-    ``settings.pallas_hybrid``; ``kernels=False`` runs the plain versions.
+    ``settings.pallas_hybrid``.
     """
     if settings.ndc is not None:
         raise NotImplementedError("NDC rays are not ported yet")
@@ -202,7 +197,7 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
     pts_c, z_c = sample_stratified(ro, rd, z_grid, perturb, generator,
                                    draws.get("t_rand"))
     raw_c = _forward(models["coarse"], settings, pts_c, rd, z_s, z_t,
-                     mode=mode, kernels=kernels)
+                     mode=mode)
     if noisy:
         raw_c = add_sigma_noise(raw_c, noise("noise_c", raw_c.shape[:-1]))
     out_c = volume_render(raw_c, z_c, rd,
@@ -212,7 +207,7 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
                             settings.num_fine, perturb, generator,
                             draws.get("u"))
     raw_f = _forward(models["fine"], settings, pts_f, rd, z_s, z_t,
-                     mode=mode, kernels=kernels)
+                     mode=mode)
     if noisy:
         raw_f = add_sigma_noise(raw_f, noise("noise_f", raw_f.shape[:-1]))
     out_f = volume_render(raw_f, z_f, rd,

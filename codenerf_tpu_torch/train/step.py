@@ -60,16 +60,14 @@ def gather_ray_batch(directions, pose, pixels, object_ids,
 
 def make_train_step(settings: RenderSettings, state: TrainState,
                     num_random_rays: int, regularizer_lambda: float,
-                    perturb: bool, ray_chunks: int = 1,
-                    kernels: bool = True) -> Callable:
+                    perturb: bool, ray_chunks: int = 1) -> Callable:
     """Build the train step over ``state``.
 
     Returned signature: ``train_step(directions, pose, pixels, object_ids,
     generator, inds=None, draws=None) -> StepMetrics``; it updates
     ``state`` in place (parameters, optimizer, scheduler, step).  ``inds``
     and ``draws`` (a list of ``render_rays_train`` draws, one per chunk)
-    replace the generator's draws in tests.  ``kernels=False`` runs the
-    trunk's plain versions.
+    replace the generator's draws in tests.
     """
     models, tables = state.models, state.tables
 
@@ -90,7 +88,7 @@ def make_train_step(settings: RenderSettings, state: TrainState,
             z_s, z_t = lookup_codes(tables, ids[sl])
             out_c, out_f = render_rays_train(
                 models, settings, ro[sl], rd[sl], z_s, z_t, generator,
-                perturb, settings.noise_std, kernels,
+                perturb, settings.noise_std,
                 None if draws is None else draws[i])
             c = torch.sum((out_c.rgb - target[sl, :3]) ** 2)
             f = torch.sum((out_f.rgb - target[sl, :3]) ** 2)
