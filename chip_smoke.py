@@ -6,29 +6,41 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
 ``SRN_CARS_CODE``, so no YAML is read) with random weights from a seed:
 
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``) and K2 / K3
-               (``ops/csrc/trunk_bwd.cu``) with one nvcc each, started
-               together, into ``build/torch_kernels/``; print ptxas's
-               registers and spills.
-  3. kernels — K1, K2 and K3 against their plain PyTorch versions on the
-               card at the main paths' shapes (the render's R = 4096 rays
-               and the train step's R = 16384, S = 32 and 160): max abs
-               error and relRMS of every output (gate 1e-2), K2 / K3
-               bit-identical across two calls; kernel and plain times
-               (CUDA events around back-to-back calls) beside the bound.
+  2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``), K2 / K3
+               (``ops/csrc/trunk_bwd.cu``) and K4 (``ops/csrc/layer_bwd.cu``)
+               with one nvcc each, started together, into
+               ``build/torch_kernels/``; print ptxas's registers and spills.
+  3. kernels — K1, K2, K3 and K4 against their plain PyTorch versions on
+               the card at the main paths' shapes (the render's R = 4096
+               rays and the train step's R = 16384, S = 32 and 160; K4 also
+               in f32 and at R = 1000, S = 24, a masked tail tile): max abs
+               error and relRMS of every output (gate 1e-2), K2-K4
+               bit-identical across two calls; kernel, plain and (K4)
+               library times (CUDA events around back-to-back calls)
+               beside the bound.
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
-               with K1 (K1's launch count must rise by exactly 8), the same
-               image with the plain trunk (PSNR gate 40 dB), and a 16x16
-               image on the card against the port's CPU path (40 dB).
+               with K1 (``use_pallas``; K1's launch count must rise by
+               exactly 8), the same image with the plain trunk (PSNR gate
+               40 dB), and a 16x16 image on the card against the port's
+               CPU path (40 dB); then the same image with the YAML's own
+               flags, through the ray-structured forward (ms per image,
+               PSNR against the K1 image; 16x16 card against CPU, 40 dB).
   5. profile — one more render under ``torch.profiler``: device busy
                time by kernel, K1's share, the idle share.
   6. train   — the flagship train step from a seeded student with 8
-               objects on 4 targets a seeded teacher renders: one step of
-               4 x 4096 rays with the kernels against the same step on the
-               plain versions (gradient relRMS gate 1e-2 per leaf), then 30
-               steps of 4 x 4096 rays (launches per step, ms per step, rays/s; the
-               loss must fall), in fused mode (K1 + K2) and hybrid mode
-               (K3); one fused step under ``torch.profiler``.
+               objects on 4 targets a seeded teacher renders, in four modes
+               named by their runtime flags: fused (``use_pallas`` +
+               ``pallas_backward``: K1 + K2), hybrid (``pallas_hybrid``:
+               K3), xla (the YAML's own runtime: the ray-structured path
+               with remat) and layer_bwd (the same with
+               ``pallas_layer_bwd``: K4).  (a) one step of 4 x 4096 rays
+               with the kernels against the same step on the plain
+               versions (gradient relRMS gate 1e-2 per leaf; layer_bwd also
+               against the xla step), (b) 30 steps of 4 x 4096 rays
+               (launches per step, ms per step, rays/s; the fine loss must
+               fall), (c) one fused and one layer_bwd step under
+               ``torch.profiler``; then one f32 step on the ray-structured
+               path (the loss must be finite).
   7. result  — the kernel table as one JSON line, the card line, and the
                last line ``{"ok": true, "device": {...}}``.
 
@@ -54,14 +66,16 @@ from codenerf_tpu_torch.config import SRN_CARS_CODE, config_from_dict
 from codenerf_tpu_torch.core import mse2psnr, pixel_directions, pose_spherical
 from codenerf_tpu_torch.eval import make_image_renderer
 from codenerf_tpu_torch.models import CodeNeRF, CodeTables, lookup_codes
-from codenerf_tpu_torch.ops import _build, fused
+from codenerf_tpu_torch.ops import _build, fused, layer_bwd
 from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           kernel_weights, per_ray_parts,
                                           trunk_backward,
                                           trunk_backward_plain, trunk_forward,
                                           trunk_forward_plain)
+from codenerf_tpu_torch.ops.layer_bwd import (linear_relu_bwd,
+                                              linear_relu_bwd_plain)
 from codenerf_tpu_torch.core.encoding import positional_encoding
-from codenerf_tpu_torch.pipeline import RenderSettings
+from codenerf_tpu_torch.pipeline import RenderSettings, trunk_path
 from codenerf_tpu_torch.train import init_train_state, make_train_step
 
 SEED = 0
@@ -85,22 +99,33 @@ def card_line() -> str:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Rebind the trunk's wrappers to their plain versions, so that the
+    """Rebind the kernels' wrappers to their plain versions, so that the
     port's own entry points run the same path on the card without the
     kernels."""
-    saved = fused.trunk_forward, fused.trunk_backward
+    saved = (fused.trunk_forward, fused.trunk_backward,
+             layer_bwd.linear_relu_bwd)
     fused.trunk_forward = fused.trunk_forward_plain
     fused.trunk_backward = fused.trunk_backward_plain
+    layer_bwd.linear_relu_bwd = linear_relu_bwd_plain
     try:
         yield
     finally:
-        fused.trunk_forward, fused.trunk_backward = saved
+        (fused.trunk_forward, fused.trunk_backward,
+         layer_bwd.linear_relu_bwd) = saved
 
 
 def launch_counts() -> dict:
     return {"K1": trunk_forward.launches,
             "K2": trunk_backward.launches_recompute,
-            "K3": trunk_backward.launches_stored}
+            "K3": trunk_backward.launches_stored,
+            "K4": linear_relu_bwd.launches}
+
+
+def reset_launch_counts():
+    trunk_forward.launches = 0
+    trunk_backward.launches_recompute = 0
+    trunk_backward.launches_stored = 0
+    linear_relu_bwd.launches = 0
 
 
 def time_ms(fn, calls=10, repeats=5, warmup=3) -> float:
@@ -303,6 +328,117 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
     return out
 
 
+def k4_cost(M, R, K, N, per_ray, es) -> dict:
+    """Work of one K4 launch on these inputs: the dx and dw products
+    (bf16 FLOPs, or f32 operations for f32 operands), and the bytes it
+    must move: x, y, g and w read once, dx, dw and db written once."""
+    flops = 4 * M * K * N
+    db = R * N * 4 if per_ray else N * 4
+    return {"bf16_flops": flops if es == 2 else 0,
+            "f32_ops": flops if es == 4 else 0,
+            "bytes": M * (2 * K + 2 * N) * es + K * N * es + K * N * 4 + db}
+
+
+# K4's cases: (name, R, S, per_ray, dtype); the coarse and fine shapes are
+# the flagship step's (layer_xyz2 and layer_dir1 per-ray, layer_dir2 a
+# bias), f32 the synth-smoke config's type, odd a masked tail tile
+K4_CASES = (("coarse per-ray", 16384, 32, True, torch.bfloat16),
+            ("coarse bias", 16384, 32, False, torch.bfloat16),
+            ("fine per-ray", 16384, 160, True, torch.bfloat16),
+            ("fine bias", 16384, 160, False, torch.bfloat16),
+            ("f32 per-ray", 1024, 32, True, torch.float32),
+            ("f32 bias", 1024, 32, False, torch.float32),
+            ("odd per-ray", 1000, 24, True, torch.bfloat16),
+            ("odd bias", 1000, 24, False, torch.bfloat16))
+
+
+def check_k4(K, N, card) -> list:
+    """K4 against its plain version on the card: dx, dw and db at relRMS
+    <= 1e-2 and bit-identical across two calls, at every case of
+    ``K4_CASES``; kernel, plain and library times at the flagship step's
+    shapes."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    rows = []
+    for name, R, S, per_ray, dt in K4_CASES:
+        cd = torch.bfloat16 if dt == torch.bfloat16 else None
+        bound = 1.0 / K ** 0.5
+        x = torch.relu(torch.randn(R, S, K, generator=gen)).to(dt).cuda()
+        w = ((torch.rand(K, N, generator=gen) * 2 - 1) * bound).cuda()
+        y = torch.relu(torch.randn(R, S, N, generator=gen)).to(dt).cuda()
+        g = (torch.randn(R, S, N, generator=gen) * 1e-3).to(dt).cuda()
+        b = (torch.zeros(R, 1, N, dtype=dt) if per_ray
+             else torch.zeros(N)).cuda()
+
+        def kern():
+            return linear_relu_bwd(x, w, b, y, g, cd)
+
+        def plain():
+            return linear_relu_bwd_plain(x, w, b, y, g, cd)
+
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for key, a, a2, e in zip(("dx", "dw", "db"), got, again, want):
+            if a.shape != e.shape or a.dtype != e.dtype:
+                raise RuntimeError(f"K4 {name}: {key} {a.dtype} "
+                                   f"{tuple(a.shape)}, plain {e.dtype} "
+                                   f"{tuple(e.shape)}")
+            if not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"K4 {name}: {key} is not finite")
+            if not torch.equal(a, a2):
+                raise RuntimeError(f"K4 {name}: {key} differs between two "
+                                   f"calls")
+            d = a.float() - e.float()
+            errs[key] = (float(d.abs().max()),
+                         float(torch.linalg.norm(d)
+                               / torch.linalg.norm(e.float())))
+        del got, again, want
+        worst = max(errs, key=lambda k: errs[k][1])
+        row = {"case": name, "R": R, "S": S, "per_ray": per_ray,
+               "dtype": str(dt).replace("torch.", ""),
+               "max_abs_err": max(v[0] for v in errs.values()),
+               "rel_rms": errs[worst][1], "worst": worst}
+        line = (f"K4 {name} R={R} S={S} {row['dtype']}: every output "
+                f"bit-identical across two calls; max_abs_err / rel_rms: "
+                + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
+                            for k, v in errs.items()))
+        if not errs[worst][1] <= REL_RMS_GATE:
+            raise RuntimeError(f"K4 disagrees with its plain version in "
+                               f"case {name}: {worst} relRMS "
+                               f"{errs[worst][1]} > {REL_RMS_GATE}")
+        if R == 16384:
+            wc = w.to(dt)
+
+            def library():
+                # the same function from library calls: the mask, two
+                # cuBLAS products, a column or segment sum
+                gp = torch.where(y > 0, g, torch.zeros((), dtype=dt,
+                                                       device="cuda"))
+                gp2 = gp.view(-1, N)
+                dx = gp2 @ wc.t()
+                dw = x.view(-1, K).t() @ gp2
+                db = gp.float().sum(dim=1 if per_ray else (0, 1))
+                return dx, dw, db
+
+            ms = time_ms(kern, calls=3, repeats=5, warmup=1)
+            plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
+            library_ms = time_ms(library, calls=3, repeats=5, warmup=1)
+            cost = k4_cost(R * S, R, K, N, per_ray, x.element_size())
+            b_ms, b_by = bound_ms(cost)
+            row.update({"ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "cost": cost})
+            line += (f"; ms={ms:.6g} plain_ms={plain_ms:.6g} "
+                     f"library_ms={library_ms:.6g} bound_ms={b_ms:.6g} "
+                     f"({b_by}) achieved="
+                     f"{cost['bytes'] / ms / 1e9:.6g} TB/s on {card}")
+        print(line, flush=True)
+        rows.append(row)
+        del x, w, y, g, b
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase(name, t0):
     print(f"phase {name}: done in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -373,6 +509,26 @@ def check_k1(settings, model, ro, rd, zs, zt, chunk, card) -> dict:
 
 TRAIN_STEPS = 30
 
+# the train modes, named by their runtime flags over the YAML's own
+# runtime (use_pallas false, remat true); the launches each step must make
+TRAIN_MODES = {
+    "fused": ({"use_pallas": True, "pallas_backward": True},
+              {"K1": 2, "K2": 2, "K3": 0, "K4": 0}),
+    "hybrid": ({"pallas_hybrid": True}, {"K1": 0, "K2": 0, "K3": 2, "K4": 0}),
+    "xla": ({}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0}),
+    "layer_bwd": ({"pallas_layer_bwd": True},
+                  {"K1": 0, "K2": 0, "K3": 0, "K4": 6}),
+}
+
+
+def mode_config(flags: dict):
+    """(cfg, settings) of the flagship values with ``flags`` set in the
+    runtime section."""
+    d = copy.deepcopy(SRN_CARS_CODE)
+    d["runtime"].update(flags)
+    cfg = config_from_dict(d)
+    return cfg, RenderSettings.from_config(cfg)
+
 
 def grads_of(state) -> dict:
     named = [(f"{k}.{n}", p) for k, m in state.models.items()
@@ -381,10 +537,16 @@ def grads_of(state) -> dict:
     return {n: p.grad.detach().clone() for n, p in named}
 
 
-def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
-    """The flagship train step on the card (phase 6), in fused and hybrid
-    mode."""
-    size, chunk = cfg.dataset.image_size, cfg.nerf.validation.chunksize
+def grad_rel_rms(got: dict, want: dict) -> dict:
+    return {n: float(torch.linalg.norm(got[n] - g) / torch.linalg.norm(g))
+            for n, g in want.items() if float(g.norm()) > 0}
+
+
+def train_phase(size, dirs, teacher, tables, card) -> dict:
+    """The flagship train step on the card (phase 6) in each mode of
+    ``TRAIN_MODES``, and one f32 step."""
+    cfg, k1_settings = mode_config(TRAIN_MODES["fused"][0])
+    chunk = cfg.nerf.validation.chunksize
     B = cfg.dataset.train_batch_size
     n_rays = cfg.nerf.ray_sampler.num_random_rays
     lam = cfg.experiment.regularizer_lambda
@@ -392,7 +554,7 @@ def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
     poses = torch.stack([pose_spherical(0.5 + 0.25 * i, 0.9 * i, 1.3,
                                         device="cuda") for i in range(B)])
     ids = torch.arange(B, device="cuda")
-    render = make_image_renderer(settings, size, size, chunk, "cuda")
+    render = make_image_renderer(k1_settings, size, size, chunk, "cuda")
     with torch.no_grad():
         pixels = torch.stack([
             render(teacher, dirs, poses[i],
@@ -401,59 +563,81 @@ def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
     print(f"train: {B} targets of {size}x{size} from the seeded teacher; "
           f"student of {n_objects} objects, {B} x {n_rays} rays a step, "
           f"regularizer {lam}", flush=True)
+
+    def one_step(settings, plain=False):
+        """One step from the seeded student: (state, grads, loss,
+        launches)."""
+        st = init_train_state(cfg, settings, n_objects, seed=SEED + 2,
+                              device="cuda")
+        step = make_train_step(settings, st, n_rays, lam, True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        before = launch_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            m = step(dirs, poses, pixels, ids, gen)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        return st, grads_of(st), float(m.loss), launched
+
     results = {}
-    for mode in ("fused", "hybrid"):
-        s_mode = dataclasses.replace(settings,
-                                     pallas_hybrid=mode == "hybrid")
+    xla_grads = None
+    for mode, (flags, want_launches) in TRAIN_MODES.items():
+        _, settings = mode_config(flags)
+        torch.cuda.reset_peak_memory_stats()
+        kernels = any(want_launches.values())
         # (a) one step of B x n_rays rays with the kernels and one on the
         # plain versions, from the same state and generator seed
-        grads, losses = {}, {}
-        for kernels in (True, False):
-            st = init_train_state(cfg, s_mode, n_objects, seed=SEED + 2,
-                                  device="cuda")
-            step = make_train_step(s_mode, st, n_rays, lam, True)
-            gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-            before = launch_counts()
-            with (contextlib.nullcontext() if kernels
-                  else plain_versions()):
-                m = step(dirs, poses, pixels, ids, gen)
-            torch.cuda.synchronize()
-            launched = {k: v - before[k] for k, v in launch_counts().items()}
-            if (sum(launched.values()) > 0) != kernels:
-                raise RuntimeError(f"train {mode} (a): kernels={kernels} "
+        student, grads, loss, launched = one_step(settings)
+        if launched != want_launches:
+            raise RuntimeError(f"train {mode} (a): launched {launched}, "
+                               f"expected {want_launches}")
+        row = {"path": trunk_path(settings), "loss_step_a": loss}
+        if mode == "xla":
+            xla_grads = grads
+        if kernels:
+            st, plain_grads, plain_loss, launched = one_step(settings, True)
+            del st
+            if any(launched.values()):
+                raise RuntimeError(f"train {mode} (a): the plain step "
                                    f"launched {launched}")
-            grads[kernels], losses[kernels] = grads_of(st), float(m.loss)
-            if kernels:
-                student = st
-            else:
-                del st, step
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        torch.cuda.empty_cache()
-        rel = {n: float(torch.linalg.norm(grads[True][n] - g)
-                        / torch.linalg.norm(g))
-               for n, g in grads[False].items() if float(g.norm()) > 0}
-        worst = max(rel, key=rel.get)
-        print(f"train {mode} (a): {B * n_rays} rays: loss kernels="
-              f"{losses[True]:.8g} plain={losses[False]:.8g}; gradient "
-              f"relRMS over {len(rel)} leaves: worst {worst} "
-              f"{rel[worst]:.4g}, median "
-              f"{statistics.median(rel.values()):.4g}; peak memory so far "
-              f"{peak_gb:.3g} GiB", flush=True)
-        if not rel[worst] <= REL_RMS_GATE:
-            raise RuntimeError(f"train {mode}: {worst} gradient relRMS "
-                               f"{rel[worst]} > {REL_RMS_GATE}")
-        if not abs(losses[True] - losses[False]) <= 1e-3 * losses[False]:
-            raise RuntimeError(f"train {mode}: loss {losses[True]} vs "
-                               f"plain {losses[False]}")
+            rel = grad_rel_rms(grads, plain_grads)
+            worst = max(rel, key=rel.get)
+            print(f"train {mode} (a): {B * n_rays} rays: loss kernels="
+                  f"{loss:.8g} plain={plain_loss:.8g}; gradient relRMS over "
+                  f"{len(rel)} leaves: worst {worst} {rel[worst]:.4g}, "
+                  f"median {statistics.median(rel.values()):.4g}; peak "
+                  f"memory of the mode so far "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3g} GiB",
+                  flush=True)
+            if not rel[worst] <= REL_RMS_GATE:
+                raise RuntimeError(f"train {mode}: {worst} gradient relRMS "
+                                   f"{rel[worst]} > {REL_RMS_GATE}")
+            if not abs(loss - plain_loss) <= 1e-3 * plain_loss:
+                raise RuntimeError(f"train {mode}: loss {loss} vs plain "
+                                   f"{plain_loss}")
+            row["grad_rel_rms_worst"] = [worst, rel[worst]]
+            del plain_grads
+        if mode == "layer_bwd":
+            # the xla mode's step: the same math, summed in another order
+            rel = grad_rel_rms(grads, xla_grads)
+            worst = max(rel, key=rel.get)
+            print(f"train layer_bwd (a) vs xla: gradient relRMS over "
+                  f"{len(rel)} leaves: worst {worst} {rel[worst]:.4g}, "
+                  f"median {statistics.median(rel.values()):.4g}",
+                  flush=True)
+            if not rel[worst] <= REL_RMS_GATE:
+                raise RuntimeError(f"train layer_bwd vs xla: {worst} "
+                                   f"gradient relRMS {rel[worst]} > "
+                                   f"{REL_RMS_GATE}")
+            row["grad_rel_rms_worst_vs_xla"] = [worst, rel[worst]]
+            del xla_grads
         del grads
+        torch.cuda.empty_cache()
 
         # (b) TRAIN_STEPS steps at B x n_rays rays, jitter on
-        step = make_train_step(s_mode, student, n_rays, lam, True)
+        step = make_train_step(settings, student, n_rays, lam, True)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
         torch.cuda.synchronize()
-        trunk_forward.launches = 0
-        trunk_backward.launches_recompute = 0
-        trunk_backward.launches_stored = 0
+        reset_launch_counts()
         ms, fine, total = [], [], []
         for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -471,33 +655,34 @@ def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
               f"median {step_ms:.6g} ms/step ({B * n_rays / step_ms * 1e3:.6g}"
               f" rays/s), first {ms[0]:.6g} ms; launches per step "
               f"{per_step}; fine loss {fine[0]:.6g} -> {fine[-1]:.6g} "
-              f"(loss {total[0]:.6g} -> {total[-1]:.6g}) on {card}",
-              flush=True)
-        want = ({"K1": 2, "K2": 2, "K3": 0} if mode == "fused"
-                else {"K1": 0, "K2": 0, "K3": 2})
-        if per_step != want:
+              f"(loss {total[0]:.6g} -> {total[-1]:.6g}); peak memory of "
+              f"the mode {torch.cuda.max_memory_allocated() / 2**30:.3g} GiB "
+              f"on {card}", flush=True)
+        if per_step != want_launches:
             raise RuntimeError(f"train {mode}: launches per step {per_step},"
-                               f" expected {want}")
+                               f" expected {want_launches}")
         if not all(map(lambda v: v == v and abs(v) != float("inf"), total)):
             raise RuntimeError(f"train {mode}: a loss is not finite")
         first, last = statistics.mean(fine[:10]), statistics.mean(fine[-10:])
         if not last < first:
             raise RuntimeError(f"train {mode}: the fine loss did not fall "
                                f"({first} -> {last})")
-        results[mode] = {"step_ms": step_ms, "step_ms_all": ms,
-                         "rays_per_s": B * n_rays / step_ms * 1e3,
-                         "launches": counts, "launches_per_step": per_step,
-                         "loss_fine": fine, "loss": total,
-                         "grad_rel_rms_worst": [worst, rel[worst]]}
+        row.update({"step_ms": step_ms, "step_ms_all": ms,
+                    "rays_per_s": B * n_rays / step_ms * 1e3,
+                    "launches": counts, "launches_per_step": per_step,
+                    "loss_fine": fine, "loss": total})
+        results[mode] = row
 
-        if mode == "fused":
-            # (d) one fused step under torch.profiler
+        # (c) one step under torch.profiler
+        if mode in ("fused", "layer_bwd"):
+            labels = ({"K1": "trunk_fwd_kernel", "K2": "trunk_bwd_kernel",
+                       "reduce": "trunk_bwd_reduce"} if mode == "fused"
+                      else {"K4": "layer_bwd_kernel",
+                            "reduce": "layer_bwd_reduce"})
             prof = profile_call(step, (dirs, poses, pixels, ids, gen),
-                                step_ms, {"K1": "trunk_fwd_kernel",
-                                          "K2": "trunk_bwd_kernel",
-                                          "reduce": "trunk_bwd_reduce"})
+                                step_ms, labels)
             if prof["device_busy_ms"]:
-                print(f"train profile: device busy "
+                print(f"train {mode} profile: device busy "
                       f"{prof['device_busy_ms']:.6g} ms per step against "
                       f"the unprofiled {step_ms:.6g} ms (idle share "
                       f"{prof['idle_share']:.4g}); kernel ms "
@@ -505,12 +690,35 @@ def train_phase(cfg, settings, teacher, tables, dirs, card) -> dict:
                       f"{prof['kernel_share_of_busy']} on {card}",
                       flush=True)
             else:
-                print("train profile: torch.profiler recorded no device "
-                      "time: the breakdown is not measured", flush=True)
-            print(json.dumps({"train_profile": prof}), flush=True)
-            results[mode]["profile"] = prof
+                print(f"train {mode} profile: torch.profiler recorded no "
+                      f"device time: the breakdown is not measured",
+                      flush=True)
+            print(json.dumps({f"train_{mode}_profile": prof}), flush=True)
+            row["profile"] = prof
         del student, step
         torch.cuda.empty_cache()
+
+    # one f32 step at the flagship width, the YAML's runtime
+    f32_cfg, f32_settings = mode_config({"compute_dtype": "float32"})
+    if trunk_path(f32_settings) != "rays":
+        raise RuntimeError("the f32 settings do not take the ray-structured "
+                           "path")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, _, loss, launched = one_step(f32_settings)
+    f32_ms = (time.perf_counter() - t0) * 1e3
+    print(f"train f32: one step of {B * n_rays} rays on the ray-structured "
+          f"path: loss {loss:.8g}, launches {launched}, {f32_ms:.6g} ms "
+          f"with set-up; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3g} GiB on {card}",
+          flush=True)
+    if not loss == loss or abs(loss) == float("inf"):
+        raise RuntimeError(f"train f32: the loss is not finite ({loss})")
+    results["f32"] = {"loss": loss, "ms_with_setup": f32_ms,
+                      "launches": launched}
+    del st
+    torch.cuda.empty_cache()
     return results
 
 
@@ -531,9 +739,9 @@ def main():
 
     t0 = time.perf_counter()
     # one nvcc for each source, started together
-    with ThreadPoolExecutor(2) as pool:
-        builds = dict(zip(("trunk_fwd", "trunk_bwd"),
-                          pool.map(_build.build, ("trunk_fwd", "trunk_bwd"))))
+    sources = ("trunk_fwd", "trunk_bwd", "layer_bwd")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, built in builds.items():
         ptxas = [ln.strip() for ln in built["log"].splitlines()
                  if "registers" in ln or "spill" in ln
@@ -544,6 +752,8 @@ def main():
 
     cfg = config_from_dict(SRN_CARS_CODE)
     settings = RenderSettings.from_config(cfg)
+    # the render serves through K1, named by its runtime flag
+    k1_settings = dataclasses.replace(settings, use_pallas=True)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     models = {"coarse": CodeNeRF(settings.coarse_cfg, "cuda", gen),
               "fine": CodeNeRF(settings.fine_cfg, "cuda", gen)}
@@ -577,10 +787,12 @@ def main():
     bwd = check_bwd(settings, models["fine"], ro_all[:n_step].contiguous(),
                     rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
                     z_t.expand(n_step, -1), card)
+    h = settings.fine_cfg.hidden_size
+    k4 = check_k4(h, h, card)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
-    render = make_image_renderer(settings, size, size, chunk, "cuda")
+    render = make_image_renderer(k1_settings, size, size, chunk, "cuda")
     render(models, dirs, pose, z_s, z_t)                     # warm-up
     torch.cuda.synchronize()
     trunk_forward.launches = 0
@@ -629,10 +841,10 @@ def main():
                            f"{PSNR_GATE}")
 
     small = 16
-    img_gpu = make_image_renderer(settings, small, small, 256, "cuda")(
+    img_gpu = make_image_renderer(k1_settings, small, small, 256, "cuda")(
         models, directions(small), pose, z_s, z_t)
     cpu_models = {k: copy.deepcopy(m).to("cpu") for k, m in models.items()}
-    img_cpu = make_image_renderer(settings, small, small, 256, "cpu")(
+    img_cpu = make_image_renderer(k1_settings, small, small, 256, "cpu")(
         cpu_models, directions(small).cpu(), pose.cpu(), z_s.cpu(),
         z_t.cpu())
     psnr_cpu = float(mse2psnr(torch.mean((img_gpu.cpu() - img_cpu) ** 2)))
@@ -641,6 +853,34 @@ def main():
     if not psnr_cpu >= PSNR_GATE:
         raise RuntimeError(f"card vs CPU image: {psnr_cpu} dB < "
                            f"{PSNR_GATE}")
+
+    # the YAML's own flags serve through the ray-structured forward
+    rays_render = make_image_renderer(settings, size, size, chunk, "cuda")
+    rays_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        img_rays = rays_render(models, dirs, pose, z_s, z_t)
+        torch.cuda.synchronize()
+        rays_ms.append((time.perf_counter() - t_r) * 1e3)
+    if tuple(img_rays.shape) != (size * size, 3) or not bool(
+            torch.isfinite(img_rays).all()):
+        raise RuntimeError(f"bad ray-structured image: shape "
+                           f"{tuple(img_rays.shape)}")
+    img_gpu = make_image_renderer(settings, small, small, 256, "cuda")(
+        models, directions(small), pose, z_s, z_t)
+    img_cpu = make_image_renderer(settings, small, small, 256, "cpu")(
+        cpu_models, directions(small).cpu(), pose.cpu(), z_s.cpu(),
+        z_t.cpu())
+    psnr_rays = float(mse2psnr(torch.mean((img_gpu.cpu() - img_cpu) ** 2)))
+    psnr_k1 = float(mse2psnr(torch.mean((img_rays - img) ** 2)))
+    print(f"render {size}x{size} ray-structured (the YAML's flags): median "
+          f"{statistics.median(rays_ms):.6g} ms/image; PSNR(vs K1 image)="
+          f"{psnr_k1:.6g} dB; {small}x{small} PSNR(card vs CPU)="
+          f"{psnr_rays:.6g} dB on {card}", flush=True)
+    if not psnr_rays >= PSNR_GATE:
+        raise RuntimeError(f"ray-structured card vs CPU image: {psnr_rays} "
+                           f"dB < {PSNR_GATE}")
     phase("render", t0)
 
     t0 = time.perf_counter()
@@ -660,7 +900,7 @@ def main():
     phase("profile", t0)
 
     t0 = time.perf_counter()
-    train = train_phase(cfg, settings, models, tables, dirs, card)
+    train = train_phase(size, dirs, models, tables, card)
     phase("train", t0)
 
     # one image runs each S once per chunk at R = chunk; one train step
@@ -720,6 +960,38 @@ def main():
                    f"launches counted over {TRAIN_STEPS} steps",
             "shapes": bwd[name],
         })
+    # one layer_bwd step: layer_xyz2 and layer_dir1 (per-ray rows) and
+    # layer_dir2 (a bias) at each pass's S
+    step_cases = {"coarse per-ray": 2, "coarse bias": 1, "fine per-ray": 2,
+                  "fine bias": 1}
+    step_rows = [(r, step_cases[r["case"]]) for r in k4
+                 if r["case"] in step_cases]
+    cost = {k: sum(n * r["cost"][k] for r, n in step_rows)
+            for k in step_rows[0][0]["cost"]}
+    b_ms, b_by = bound_ms(cost)
+    kernels.append({
+        "name": "K4 layer_bwd",
+        "route": "cuda",
+        "source": "codenerf_tpu_torch/ops/csrc/layer_bwd.cu",
+        "replaces": "codenerf_tpu/ops/layer_bwd.py:55",
+        "launches": train["layer_bwd"]["launches"]["K4"],
+        "launches_per_train_step":
+            train["layer_bwd"]["launches_per_step"]["K4"],
+        "max_abs_err": max(r["max_abs_err"] for r in k4),
+        "rel_rms": max(r["rel_rms"] for r in k4),
+        "ms": sum(n * r["ms"] for r, n in step_rows),
+        "plain_ms": sum(n * r["plain_ms"] for r, n in step_rows),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": sum(n * r["library_ms"] for r, n in step_rows),
+        "library_note": "torch.where + two bf16 cuBLAS products + a "
+                        "column or segment sum, at each launch's shape",
+        "per": f"one flagship train step (layer_bwd mode): "
+               f"{sum(step_cases.values())} launches, "
+               f"{', '.join(f'{n} x {c}' for c, n in step_cases.items())} "
+               f"at R={n_step}; launches counted over {TRAIN_STEPS} steps",
+        "shapes": k4,
+    })
     print(json.dumps({"train": {m: {k: v for k, v in r.items()
                                     if k != "profile"}
                                 for m, r in train.items()}}), flush=True)

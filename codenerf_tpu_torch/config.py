@@ -105,10 +105,29 @@ class NerfConfig:
 
 @dataclass(frozen=True)
 class RuntimeConfig:
+    """The trunk's path, with the JAX schema's names and defaults
+    (``codenerf_tpu/config/schema.py:211-260``; ``pipeline.py`` reads
+    them):
+
+    - ``use_pallas``: the fused trunk forward, K1; with
+      ``pallas_backward`` its backward is K2, else autograd through the
+      ray-structured forward, recomputed;
+    - ``pallas_hybrid`` (without ``use_pallas``): a plain forward that
+      stores the activations, K3 backward;
+    - none of these: the ray-structured path
+      (``models/ray_structured.py``), each relu layer's backward K4 under
+      ``pallas_layer_bwd``, the forward recomputed in the backward under
+      ``remat``; ``split_fc_out`` / ``fc_out_tail_sigma`` shape its
+      fc_out.
+    """
     compute_dtype: Optional[str] = "bfloat16"
-    # train step: stored-activation backward (K3) instead of the
-    # recompute backward (K2)
+    use_pallas: bool = False
+    pallas_backward: bool = False
     pallas_hybrid: bool = False
+    pallas_layer_bwd: bool = False
+    remat: bool = False
+    split_fc_out: bool = False
+    fc_out_tail_sigma: bool = True
     # train step: accumulate the gradient over this many ray chunks
     ray_chunks: int = 1
 
@@ -148,8 +167,8 @@ SRN_CARS_CODE = {
         "train": {"chunksize": 4096, "radiance_field_noise_std": 0.0},
         "validation": {"chunksize": 4096, "radiance_field_noise_std": 0.0},
     },
-    "runtime": {"compute_dtype": "bfloat16", "pallas_hybrid": False,
-                "ray_chunks": 1},
+    "runtime": {"compute_dtype": "bfloat16", "use_pallas": False,
+                "remat": True, "pallas_hybrid": False, "ray_chunks": 1},
 }
 
 

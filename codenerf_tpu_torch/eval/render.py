@@ -4,11 +4,14 @@
 The H*W rays are padded once to a whole number of chunks (directions
 padded with 1.0, so padded rays stay finite) and rendered chunk by chunk
 with the fine model's colour, deterministic sampling (perturb off), as the
-reference does for validation renders.
+reference does for validation renders.  The renderer serves through
+``serving_settings``: fc_out as separate sigma and feature products on the
+ray-structured path, as JAX's does; K1 serves under ``use_pallas``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -16,6 +19,16 @@ import torch
 from codenerf_tpu_torch.core.geometry import ray_bundle
 from codenerf_tpu_torch.device import resolve_device
 from codenerf_tpu_torch.pipeline import RenderSettings, render_rays
+
+
+def serving_settings(settings: RenderSettings) -> RenderSettings:
+    """The grad-free variant of ``settings``: ``split_fc_out`` on both
+    models (JAX eval/render.py:25-33)."""
+    return dataclasses.replace(
+        settings,
+        coarse_cfg=dataclasses.replace(settings.coarse_cfg,
+                                       split_fc_out=True),
+        fine_cfg=dataclasses.replace(settings.fine_cfg, split_fc_out=True))
 
 
 def make_image_renderer(settings: RenderSettings, height: int, width: int,
@@ -27,6 +40,7 @@ def make_image_renderer(settings: RenderSettings, height: int, width: int,
     ``directions`` [H, W, 3], ``pose`` [4, 4] and codes [1, C].
     """
     dev = resolve_device(device)
+    settings = serving_settings(settings)
     num_rays = height * width
     num_chunks = -(-num_rays // chunksize)
     pad = num_chunks * chunksize - num_rays

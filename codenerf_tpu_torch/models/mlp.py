@@ -36,6 +36,13 @@ class CodeNeRFConfig:
     include_input_dir: bool = True
     # bf16 products with f32 accumulation; None = full f32
     compute_dtype: str | None = None
+    # each relu layer's backward through K4 (ops/layer_bwd.py)
+    pallas_layer_bwd: bool = False
+    # fc_out as separate sigma and feature products (the image renderer
+    # sets it)
+    split_fc_out: bool = False
+    # fc_out as one product with its columns permuted to [feat | sigma]
+    fc_out_tail_sigma: bool = False
 
     @property
     def dim_xyz(self) -> int:

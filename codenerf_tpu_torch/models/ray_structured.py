@@ -8,6 +8,12 @@ splits into a per-sample product over [R, S, .] and a per-ray product over
 inputs are cast to the compute dtype, each product is the f32 sum of f32
 products of compute-dtype values rounded back to the compute dtype, bias
 and relu run in the compute dtype, and the radiance leaves in f32.
+
+The training Functions are JAX's custom VJPs with their cast points:
+``_DotLP`` (``_dot_lp``), ``_DotAddRelu`` (``_dot_add_relu``: the relu
+mask from the stored output, weight and bias grads summed in f32),
+``_DotAddReluPL`` (``_dot_add_relu_pl``: the same, its backward K4,
+``ops/layer_bwd.py``) and ``_FcOutTail`` (``_fc_out_tail``).
 """
 
 from __future__ import annotations
@@ -15,11 +21,26 @@ from __future__ import annotations
 import torch
 
 from codenerf_tpu_torch.models.mlp import CodeNeRF
+from codenerf_tpu_torch.ops import layer_bwd
 
 
 def _w(layer) -> torch.Tensor:
     """A Linear's weight in the JAX package's [in, out] layout (a view)."""
     return layer.weight.t()
+
+
+def _mmc(x, w, cd):
+    """x @ w: ``cd`` inputs, f32 sums, a ``cd`` result; plain f32 when
+    ``cd`` is None."""
+    if cd is None:
+        return x @ w
+    return (x.to(cd).float() @ w.to(cd).float()).to(cd)
+
+
+def _dw(x, g):
+    """x^T @ g over every leading axis, f32 sums and result."""
+    return (x.float().reshape(-1, x.shape[-1]).t()
+            @ g.float().reshape(-1, g.shape[-1]))
 
 
 class _DotLP(torch.autograd.Function):
@@ -33,7 +54,7 @@ class _DotLP(torch.autograd.Function):
     def forward(ctx, x, w, cd):
         ctx.save_for_backward(x, w)
         ctx.cd = cd
-        return (x.to(cd).float() @ w.to(cd).float()).to(cd)
+        return _mmc(x, w, cd)
 
     @staticmethod
     def backward(ctx, g):
@@ -44,8 +65,7 @@ class _DotLP(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = (gc @ w.to(cd).float().t()).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = (x.to(cd).float().reshape(-1, x.shape[-1]).t()
-                  @ gc.reshape(-1, g.shape[-1])).to(w.dtype)
+            dw = _dw(x.to(cd), gc).to(w.dtype)
         return dx, dw, None
 
 
@@ -58,25 +78,101 @@ def _mm(x, w, cd):
     return _DotLP.apply(x, w, cd)
 
 
+def _dar_backward(ctx, g, bwd):
+    """(dx, dw, db) from ``bwd`` (a ``layer_bwd`` function), cast to the
+    inputs' dtypes.  Reads the saved tensors once, as
+    ``torch.utils.checkpoint`` requires."""
+    x, w, b, y = ctx.saved_tensors
+    dx, dw, db = bwd(x, w, b, y, g, ctx.cd)
+    return dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype), None
+
+
+class _DotAddRelu(torch.autograd.Function):
+    """relu(x @ w + b) that saves only x, w, b and the output y (JAX
+    ``_dot_add_relu``).  ``b`` is a bias [N] or per-ray rows [R, 1, N].
+    The backward takes the relu mask from y > 0 and is
+    ``layer_bwd.linear_relu_bwd_plain``: dx in x's dtype, dw and the bias
+    sum in f32, cast to w's and b's dtypes.  Plain autograd through
+    ``relu(mm + b.to(cd))`` would round the bias sum to ``cd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, cd):
+        y = _mmc(x, w, cd)
+        y = torch.relu(y + b.to(y.dtype))
+        ctx.save_for_backward(x, w, b, y)
+        ctx.cd = cd
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dar_backward(ctx, g, layer_bwd.linear_relu_bwd_plain)
+
+
+class _DotAddReluPL(_DotAddRelu):
+    """``_DotAddRelu`` with its backward through ``layer_bwd.
+    linear_relu_bwd``: K4 for CUDA tensors, the plain version for CPU
+    tensors (JAX ``_dot_add_relu_pl``)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dar_backward(ctx, g, layer_bwd.linear_relu_bwd)
+
+
+class _FcOutTail(torch.autograd.Function):
+    """fc_out with its columns in [feat | sigma] order: ``x @ w`` plus the
+    per-ray rows ``b_rows`` [R, N] (JAX ``_fc_out_tail``).  The backward
+    splits the cotangent at the last column: dx = g_feat @ w_feat^T +
+    g_sigma w_sigma (a rank-1 term, in f32), dw and db as two column
+    blocks, sums in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b_rows, cd):
+        ctx.save_for_backward(x, w, b_rows)
+        ctx.cd = cd
+        y = _mmc(x, w, cd)
+        return y + b_rows[:, None, :].to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b_rows = ctx.saved_tensors
+        ct = ctx.cd or torch.float32
+        gc = g.to(ct)
+        gf, gs = gc[..., :-1], gc[..., -1:]
+        wc = w.to(ct)
+        dx = (gf.float() @ wc[:, :-1].float().t()
+              + gs.float() * wc[:, -1].float()).to(x.dtype)
+        xc = x.to(ct)
+        dw = torch.cat([_dw(xc, gf), _dw(xc, gs)], dim=1).to(w.dtype)
+        db = torch.cat([gf.float().sum(dim=1), gs.float().sum(dim=1)],
+                       dim=-1).to(b_rows.dtype)
+        return dx, dw, db, None
+
+
 def _lin(layer, x, cd, w=None):
     y = _mm(x, _w(layer) if w is None else w, cd)
     return y + layer.bias.to(y.dtype)
 
 
-def per_ray_conditioning(model: CodeNeRF, dir_enc, z_s, z_t):
-    """The per-ray halves of every factored concat layer.
+def _lin_relu(layer, x, cd):
+    """relu(linear) through the single-residual ``_DotAddRelu``."""
+    return _DotAddRelu.apply(x, _w(layer), layer.bias, cd)
+
+
+def per_ray_conditioning(model: CodeNeRF, dir_enc, z_s, z_t, cfg=None):
+    """The per-ray halves of every factored concat layer, under ``cfg``
+    (default ``model.cfg``).
 
     Returns (zs1_part [R, h], zs2_part [R, s+1], dir_part [R, h],
     zt1_part [R, 3]) in the compute dtype.
     """
-    cfg = model.cfg
+    cfg = cfg or model.cfg
     cd = cfg.cdtype
     h = cfg.hidden_size
     if cd is not None:
         dir_enc, z_s, z_t = dir_enc.to(cd), z_s.to(cd), z_t.to(cd)
-    zs1 = torch.relu(_lin(model.shape_code_layer1, z_s, cd))
-    zs2 = torch.relu(_lin(model.shape_code_layer2, z_s, cd))
-    zt1 = torch.relu(_lin(model.texture_code_layer1, z_t, cd))
+    zs1 = _lin_relu(model.shape_code_layer1, z_s, cd)
+    zs2 = _lin_relu(model.shape_code_layer2, z_s, cd)
+    zt1 = _lin_relu(model.texture_code_layer1, z_t, cd)
     zs1_part = _lin(model.layer_xyz2, zs1, cd, _w(model.layer_xyz2)[h:])
     zs2_part = _lin(model.fc_out, zs2, cd, _w(model.fc_out)[h:])
     dir_part = _lin(model.layer_dir1, dir_enc, cd,
@@ -85,24 +181,46 @@ def per_ray_conditioning(model: CodeNeRF, dir_enc, z_s, z_t):
     return zs1_part, zs2_part, dir_part, zt1_part
 
 
-def apply_codenerf_rays(model: CodeNeRF, xyz_enc, dir_enc, z_s, z_t):
+def apply_codenerf_rays(model: CodeNeRF, xyz_enc, dir_enc, z_s, z_t,
+                        cfg=None):
     """raw [R, S, 4] (rgb logits, sigma logit) in f32 from xyz_enc
-    [R, S, dim_xyz], dir_enc [R, dim_dir] and codes [R, C]."""
-    cfg = model.cfg
+    [R, S, dim_xyz], dir_enc [R, dim_dir] and codes [R, C], under ``cfg``
+    (default ``model.cfg``; the pipeline passes its settings' model
+    config, as JAX's ``_forward`` does), with JAX's branches
+    (ray_structured.py:314-357): layer_xyz2, layer_dir1 and layer_dir2
+    through ``_DotAddReluPL`` under ``pallas_layer_bwd``, else
+    ``_DotAddRelu``; fc_out as separate sigma and feature products under
+    ``pallas_layer_bwd`` or ``split_fc_out``, else ``_FcOutTail`` under
+    ``fc_out_tail_sigma``, else one product and a slice."""
+    cfg = cfg or model.cfg
     cd = cfg.cdtype
     h = cfg.hidden_size
     if cd is not None:
         xyz_enc = xyz_enc.to(cd)
     zs1_part, zs2_part, dir_part, zt1_part = per_ray_conditioning(
-        model, dir_enc, z_s, z_t)
+        model, dir_enc, z_s, z_t, cfg)
+    w2_top = _w(model.layer_xyz2)[:h]
+    wo_top = _w(model.fc_out)[:h]
+    wd_top = _w(model.layer_dir1)[:cfg.shape_code_size]
+    wr_top = _w(model.fc_rgb)[:h]
+    dar = (_DotAddReluPL if cfg.pallas_layer_bwd else _DotAddRelu).apply
 
-    x = torch.relu(_lin(model.layer_xyz1, xyz_enc, cd))
-    x = torch.relu(_mm(x, _w(model.layer_xyz2)[:h], cd)
-                   + zs1_part[:, None, :])
-    out = _mm(x, _w(model.fc_out)[:h], cd) + zs2_part[:, None, :]
-    sigma, feat = out[..., :1], out[..., 1:]
-    v = torch.relu(_mm(feat, _w(model.layer_dir1)[:cfg.shape_code_size], cd)
-                   + dir_part[:, None, :])
-    v = torch.relu(_lin(model.layer_dir2, v, cd))
-    rgb = _mm(v, _w(model.fc_rgb)[:h], cd) + zt1_part[:, None, :]
+    # layer_xyz1 stays on _DotAddRelu under pallas_layer_bwd too, as in
+    # JAX: its dx is never needed in training
+    x = _lin_relu(model.layer_xyz1, xyz_enc, cd)
+    x = dar(x, w2_top, zs1_part[:, None, :], cd)
+    if cfg.pallas_layer_bwd or cfg.split_fc_out:
+        sigma = _mm(x, wo_top[:, :1], cd) + zs2_part[:, None, :1]
+        feat = _mm(x, wo_top[:, 1:], cd) + zs2_part[:, None, 1:]
+    elif cfg.fc_out_tail_sigma:
+        wo_r = torch.cat([wo_top[:, 1:], wo_top[:, :1]], dim=1)
+        zs2_r = torch.cat([zs2_part[:, 1:], zs2_part[:, :1]], dim=1)
+        out = _FcOutTail.apply(x, wo_r, zs2_r, cd)
+        feat, sigma = out[..., :-1], out[..., -1:]
+    else:
+        out = _mm(x, wo_top, cd) + zs2_part[:, None, :]
+        sigma, feat = out[..., :1], out[..., 1:]
+    v = dar(feat, wd_top, dir_part[:, None, :], cd)
+    v = dar(v, _w(model.layer_dir2), model.layer_dir2.bias, cd)
+    rgb = _mm(v, wr_top, cd) + zt1_part[:, None, :]
     return torch.cat([rgb, sigma], dim=-1).float()

@@ -16,11 +16,13 @@ for K2 / K3 and ``trunk_backward_plain``.  Each counts its launches
 (``trunk_forward.launches``, ``trunk_backward.launches_recompute`` and
 ``.launches_stored``).
 
-Training runs through two autograd Functions, the two Pallas modes of the
+Training runs through three autograd Functions, the Pallas modes of the
 JAX package: ``TrunkFunction`` (K1 forward, K2 backward;
-``make_fused_codenerf(pallas_backward=True)``) and ``HybridTrunkFunction``
-(a plain forward that stores the bf16 activations, K3 backward;
-``make_hybrid_codenerf``).
+``make_fused_codenerf(pallas_backward=True)``), ``RecomputeTrunkFunction``
+(K1 forward, autograd through the recomputed ray-structured forward;
+``make_fused_codenerf`` without ``pallas_backward``) and
+``HybridTrunkFunction`` (a plain forward that stores the bf16
+activations, K3 backward; ``make_hybrid_codenerf``).
 
 ``fused_codenerf`` and the Functions reach the wrappers through this
 module's names ``trunk_forward`` and ``trunk_backward`` when they run, so
@@ -36,9 +38,11 @@ import functools
 
 import torch
 
-from codenerf_tpu_torch.core.encoding import frequency_bands
+from codenerf_tpu_torch.core.encoding import (frequency_bands,
+                                              positional_encoding)
 from codenerf_tpu_torch.models.mlp import CodeNeRF
-from codenerf_tpu_torch.models.ray_structured import _mm, _w
+from codenerf_tpu_torch.models.ray_structured import (_mm, _w,
+                                                      apply_codenerf_rays)
 from codenerf_tpu_torch.ops import _build
 
 # row layout of K1's per-ray inputs, in the kernel's argument order
@@ -610,3 +614,51 @@ def train_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
     named = dict(per_ray, **weights)
     fn = HybridTrunkFunction if hybrid else TrunkFunction
     return fn.apply(model.cfg.cdtype, pts, *(named[k] for k in _FN_KEYS))
+
+
+class RecomputeTrunkFunction(torch.autograd.Function):
+    """The fused trunk with JAX ``make_fused_codenerf`` semantics without
+    ``pallas_backward`` (fused.py:638-651): K1 forward
+    (``fused_codenerf``); the backward recomputes the ray-structured
+    forward (encode, then ``apply_codenerf_rays`` under ``cfg``) and
+    backpropagates through it with autograd.  Grads flow to pts, dir_enc,
+    the codes and the model's parameters, which follow the four tensors
+    as arguments."""
+
+    @staticmethod
+    def forward(ctx, model, cfg, num_freq_xyz, log_sampling_xyz, pts,
+                dir_enc, z_s, z_t, *params):
+        ctx.model, ctx.cfg = model, cfg
+        ctx.enc = (num_freq_xyz, log_sampling_xyz)
+        ctx.save_for_backward(pts, dir_enc, z_s, z_t)
+        return fused_codenerf(model, pts, dir_enc, z_s, z_t,
+                              num_freq_xyz=num_freq_xyz,
+                              log_sampling_xyz=log_sampling_xyz)
+
+    @staticmethod
+    def backward(ctx, g):
+        model = ctx.model
+        num_freq, log_sampling = ctx.enc
+        needs = ctx.needs_input_grad[4:]
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, needs)]
+        leaves = ins + list(model.parameters())
+        with torch.enable_grad():
+            xyz_enc = positional_encoding(ins[0], num_freq,
+                                          model.cfg.include_input_xyz,
+                                          log_sampling)
+            raw = apply_codenerf_rays(model, xyz_enc, *ins[1:], cfg=ctx.cfg)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(raw, wanted, g, allow_unused=True))
+        return (None, None, None, None,
+                *(next(grads) if need else None for need in needs))
+
+
+def recompute_codenerf(model: CodeNeRF, pts, dir_enc, z_s, z_t, *,
+                       num_freq_xyz: int, log_sampling_xyz: bool, cfg=None):
+    """CodeNeRF raw [R, S, 4] through ``RecomputeTrunkFunction``: K1
+    forward, autograd through the ray-structured forward under ``cfg``
+    (default ``model.cfg``), recomputed."""
+    return RecomputeTrunkFunction.apply(
+        model, cfg or model.cfg, num_freq_xyz, log_sampling_xyz, pts,
+        dir_enc, z_s, z_t, *model.parameters())

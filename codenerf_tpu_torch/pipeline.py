@@ -3,13 +3,28 @@
 
 ``render_rays`` is the grad-free serving render (``perturb=False``);
 ``render_rays_train`` is the train-mode render with gradients, stratified
-and inverse-CDF jitter and the sigma-noise regularizer.  The JAX package's
-TPU gates (``_pallas_active`` / ``_hybrid_active``) become one rule here:
-the CodeNeRF trunk runs its kernels for CUDA tensors and their plain
-versions for CPU tensors (``ops/fused.py``).  Training runs one of the JAX
-package's two Pallas modes: fused (K1 forward, K2 backward) by default, or
-hybrid (plain forward that stores the activations, K3 backward) under
-``runtime.pallas_hybrid``.
+and inverse-CDF jitter and the sigma-noise regularizer.
+
+The trunk's path follows JAX's gates (pipeline.py:200-248, remat at
+:296-306), picked by the runtime flags alone (``trunk_path``):
+
+  use_pallas + pallas_backward   "fused": K1 forward, K2 backward
+  use_pallas                     "fused_recompute": K1 forward, autograd
+                                 through the ray-structured forward,
+                                 recomputed
+  pallas_hybrid                  "hybrid": plain forward storing the
+                                 activations, K3 backward
+  none of these                  "rays": ``apply_codenerf_rays``, each relu
+                                 layer's backward K4 under
+                                 ``pallas_layer_bwd``; under ``remat`` each
+                                 pass's forward is recomputed in the
+                                 backward (``torch.utils.checkpoint``)
+
+JAX's ``default_backend() == "tpu"`` clause becomes the port's one rule:
+within a path, CUDA tensors run the kernels and CPU tensors their plain
+versions.  No path is picked after a kernel fails; K1-K3 compute in bf16
+only and raise for another compute dtype on CUDA, so an f32 config runs
+the "rays" path there.
 """
 
 from __future__ import annotations
@@ -18,11 +33,13 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from codenerf_tpu_torch.config import Config, EmbedderConfig, ModelSpec
 from codenerf_tpu_torch.core.encoding import positional_encoding
 from codenerf_tpu_torch.models.mlp import CodeNeRF, CodeNeRFConfig
-from codenerf_tpu_torch.ops.fused import fused_codenerf, train_codenerf
+from codenerf_tpu_torch.models.ray_structured import apply_codenerf_rays
+from codenerf_tpu_torch.ops.fused import recompute_codenerf, train_codenerf
 from codenerf_tpu_torch.ops.sampling import (base_z_vals, sample_pdf,
                                              sample_stratified)
 from codenerf_tpu_torch.ops.volume_render import RenderOutputs, volume_render
@@ -30,7 +47,10 @@ from codenerf_tpu_torch.ops.volume_render import RenderOutputs, volume_render
 
 def model_config_from_spec(spec: ModelSpec, embedder: EmbedderConfig,
                            shape_code_size: int, texture_code_size: int,
-                           compute_dtype: Optional[str] = None
+                           compute_dtype: Optional[str] = None,
+                           pallas_layer_bwd: bool = False,
+                           split_fc_out: bool = False,
+                           fc_out_tail_sigma: bool = False
                            ) -> CodeNeRFConfig:
     if spec.type != "CodeNeRFModel":
         raise NotImplementedError(
@@ -43,7 +63,10 @@ def model_config_from_spec(spec: ModelSpec, embedder: EmbedderConfig,
         num_encoding_fn_dir=embedder.num_encoding_fn_dir,
         include_input_xyz=embedder.include_input_xyz,
         include_input_dir=embedder.include_input_dir,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype,
+        pallas_layer_bwd=pallas_layer_bwd,
+        split_fc_out=split_fc_out,
+        fc_out_tail_sigma=fc_out_tail_sigma)
 
 
 @dataclass(frozen=True)
@@ -66,7 +89,10 @@ class RenderSettings:
     white_background: bool = False
     # train-stage sigma-noise regularizer (render_rays_train only)
     noise_std: float = 0.0
-    # train mode: hybrid (K3 backward) instead of fused (K2 backward)
+    # the trunk's path (trunk_path)
+    remat: bool = False
+    use_pallas: bool = False
+    pallas_backward: bool = False
     pallas_hybrid: bool = False
     # NDC rays: not ported yet
     ndc: Optional[Tuple[float, float, float]] = None
@@ -80,11 +106,15 @@ class RenderSettings:
         if dt == "float32":
             dt = None
         emb_sizes = cfg.models.embedding
+        rt = cfg.runtime
 
         def mk(spec):
             return model_config_from_spec(
                 spec, emb, emb_sizes.shape_code_size,
-                emb_sizes.texture_code_size, dt)
+                emb_sizes.texture_code_size, dt,
+                pallas_layer_bwd=rt.pallas_layer_bwd,
+                split_fc_out=rt.split_fc_out,
+                fc_out_tail_sigma=rt.fc_out_tail_sigma)
 
         return RenderSettings(
             num_coarse=ps.num_coarse, num_fine=ps.num_fine,
@@ -101,24 +131,52 @@ class RenderSettings:
             fine_cfg=mk(cfg.models.nerf_fine),
             white_background=cfg.nerf.white_background,
             noise_std=cfg.nerf.train.radiance_field_noise_std,
-            pallas_hybrid=cfg.runtime.pallas_hybrid)
+            remat=rt.remat, use_pallas=rt.use_pallas,
+            pallas_backward=rt.pallas_backward,
+            pallas_hybrid=rt.pallas_hybrid)
 
 
-def _forward(model: CodeNeRF, settings: RenderSettings, pts, rd, z_s, z_t,
-             mode=None):
-    """encode -> CodeNeRF over [R, S] samples through the fused trunk:
-    grad-free (``mode`` None), or with gradients in ``mode`` "fused" or
-    "hybrid"."""
+def trunk_path(settings: RenderSettings) -> str:
+    """The trunk's path for ``settings``: "fused", "fused_recompute",
+    "hybrid" or "rays" (module docstring)."""
+    if settings.use_pallas:
+        return "fused" if settings.pallas_backward else "fused_recompute"
+    if settings.pallas_hybrid:
+        return "hybrid"
+    return "rays"
+
+
+def remat_active(settings: RenderSettings) -> bool:
+    """Whether the train render recomputes each pass's forward in the
+    backward: ``remat`` on the "rays" path only, as in JAX (the Pallas
+    modes' Functions already recompute or store)."""
+    return settings.remat and trunk_path(settings) == "rays"
+
+
+def _forward(model: CodeNeRF, model_cfg: CodeNeRFConfig,
+             settings: RenderSettings, pts, rd, z_s, z_t):
+    """encode -> CodeNeRF over [R, S] samples on the trunk's path, the
+    ray-structured products under ``model_cfg`` (the settings' config of
+    this model).  Under ``torch.no_grad`` the paths' Functions run their
+    forwards only."""
     viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
     dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
                                   settings.include_input_dir,
                                   settings.log_sampling_dir)
+    path = trunk_path(settings)
+    if path == "rays":
+        xyz_enc = positional_encoding(pts, settings.num_encoding_fn_xyz,
+                                      settings.include_input_xyz,
+                                      settings.log_sampling_xyz)
+        return apply_codenerf_rays(model, xyz_enc, dir_enc, z_s, z_t,
+                                   model_cfg)
     kw = dict(num_freq_xyz=settings.num_encoding_fn_xyz,
               log_sampling_xyz=settings.log_sampling_xyz)
-    if mode is None:
-        return fused_codenerf(model, pts, dir_enc, z_s, z_t, **kw)
+    if path == "fused_recompute":
+        return recompute_codenerf(model, pts, dir_enc, z_s, z_t,
+                                  cfg=model_cfg, **kw)
     return train_codenerf(model, pts, dir_enc, z_s, z_t,
-                          hybrid=mode == "hybrid", **kw)
+                          hybrid=path == "hybrid", **kw)
 
 
 @torch.no_grad()
@@ -143,13 +201,15 @@ def render_rays(models: dict, settings: RenderSettings, ro, rd, z_s, z_t,
                          settings.spacing_mode, dtype=ro.dtype,
                          device=ro.device)
     pts_c, z_c = sample_stratified(ro, rd, z_grid)
-    raw_c = _forward(models["coarse"], settings, pts_c, rd, z_s, z_t)
+    raw_c = _forward(models["coarse"], settings.coarse_cfg, settings, pts_c,
+                     rd, z_s, z_t)
     out_c = volume_render(raw_c, z_c, rd,
                           white_background=settings.white_background)
     # interior-weight slice per reference nerf/__init__.py:87
     pts_f, z_f = sample_pdf(ro, rd, out_c.weights[..., 1:-1], z_c,
                             settings.num_fine)
-    raw_f = _forward(models["fine"], settings, pts_f, rd, z_s, z_t)
+    raw_f = _forward(models["fine"], settings.fine_cfg, settings, pts_f, rd,
+                     z_s, z_t)
     out_f = volume_render(raw_f, z_f, rd,
                           white_background=settings.white_background)
     return out_c, out_f
@@ -174,8 +234,8 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
     ``radiance_field_noise_std``).  The draws come from ``generator`` in
     the order coarse jitter, coarse noise, fine u, fine noise, or from
     ``draws`` ({"t_rand", "u", "noise_c", "noise_f"}) so that a test can
-    feed JAX's.  The trunk runs in fused mode, or hybrid mode when
-    ``settings.pallas_hybrid``.
+    feed JAX's.  The trunk takes ``trunk_path(settings)``, under
+    ``remat_active(settings)`` through ``torch.utils.checkpoint``.
     """
     if settings.ndc is not None:
         raise NotImplementedError("NDC rays are not ported yet")
@@ -183,7 +243,12 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
         raise ValueError("CodeNeRF needs view directions (use_viewdirs)")
     draws = draws or {}
     noisy = noise_std > 0.0 and perturb
-    mode = "hybrid" if settings.pallas_hybrid else "fused"
+
+    def forward(model, model_cfg, pts):
+        if remat_active(settings):
+            return checkpoint(_forward, model, model_cfg, settings, pts, rd,
+                              z_s, z_t, use_reentrant=False)
+        return _forward(model, model_cfg, settings, pts, rd, z_s, z_t)
 
     def noise(key, shape):
         if key in draws:
@@ -196,8 +261,7 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
                          device=ro.device)
     pts_c, z_c = sample_stratified(ro, rd, z_grid, perturb, generator,
                                    draws.get("t_rand"))
-    raw_c = _forward(models["coarse"], settings, pts_c, rd, z_s, z_t,
-                     mode=mode)
+    raw_c = forward(models["coarse"], settings.coarse_cfg, pts_c)
     if noisy:
         raw_c = add_sigma_noise(raw_c, noise("noise_c", raw_c.shape[:-1]))
     out_c = volume_render(raw_c, z_c, rd,
@@ -206,8 +270,7 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
     pts_f, z_f = sample_pdf(ro, rd, out_c.weights[..., 1:-1], z_c,
                             settings.num_fine, perturb, generator,
                             draws.get("u"))
-    raw_f = _forward(models["fine"], settings, pts_f, rd, z_s, z_t,
-                     mode=mode)
+    raw_f = forward(models["fine"], settings.fine_cfg, pts_f)
     if noisy:
         raw_f = add_sigma_noise(raw_f, noise("noise_f", raw_f.shape[:-1]))
     out_f = volume_render(raw_f, z_f, rd,

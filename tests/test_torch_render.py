@@ -1,7 +1,9 @@
 """Port parity for the whole slice: codenerf_tpu_torch's pipeline and
 image renderer on the CPU against the JAX package's (XLA path), at 8
 coarse + 8 fine samples and an 8x8 image (f32 atol 1e-5; bf16 relRMS
-1e-2)."""
+1e-2).  The port serves through the fused trunk, K1's plain version here,
+named by its runtime flag ``use_pallas``; the YAML's own flags serve
+through the ray-structured path (``tests/test_torch_xla_path.py``)."""
 
 import dataclasses
 
@@ -43,7 +45,7 @@ def _configs(compute_dtype):
         nerf=NerfConfig(
             point_sampler=PointSamplerConfig(num_coarse=8, num_fine=8),
             embedder=EmbedderConfig(num_encoding_fn_xyz=4)),
-        runtime=RuntimeConfig(compute_dtype=compute_dtype))
+        runtime=RuntimeConfig(compute_dtype=compute_dtype, use_pallas=True))
     port_cfg = config_from_dict({
         "models": {"nerf_coarse": {"hidden_size": 32},
                    "nerf_fine": {"hidden_size": 32},
@@ -51,7 +53,7 @@ def _configs(compute_dtype):
                                  "texture_code_size": 16}},
         "nerf": {"point_sampler": {"num_coarse": 8, "num_fine": 8},
                  "embedder": {"num_encoding_fn_xyz": 4}},
-        "runtime": {"compute_dtype": compute_dtype}})
+        "runtime": {"compute_dtype": compute_dtype, "use_pallas": True}})
     return (JRenderSettings.from_config(jax_cfg),
             RenderSettings.from_config(port_cfg))
 

@@ -9,16 +9,17 @@ optimizer 1e-6 (the same f32 update arithmetic); bf16 relRMS 1e-2 per
 gradient leaf (one bf16 ulp is 2^-8 relative, and a rounding or a relu
 mask may flip at an ulp).
 
-In f32 the port's train step is held against the JAX XLA path, which
-computes the same function.  In bf16 it is held against the JAX Pallas
-mode it ports (fused: ``use_pallas`` + ``pallas_backward``; hybrid:
-``pallas_hybrid``), run in interpret mode: the XLA path rounds to bf16 at
-other points, and at this size its gradients differ from JAX's own fused
-Pallas mode by up to 13% relRMS in the deep sigma-path leaves (measured),
-while the port differs from the fused Pallas mode by 2.5e-4.
+The steps here run the port's Pallas modes, named by their runtime
+flags: fused (``use_pallas`` + ``pallas_backward``) unless a test asks
+for hybrid (``pallas_hybrid``).  In f32 the port's train step is held
+against the JAX XLA path, which computes the same function.  In bf16 it
+is held against the JAX Pallas mode it ports, run in interpret mode: the
+XLA path rounds to bf16 at other points, and at this size its gradients
+differ from JAX's own fused Pallas mode by up to 13% relRMS in the deep
+sigma-path leaves (measured), while the port differs from the fused
+Pallas mode by 2.5e-4.  The flagship YAML's own path, the ray-structured
+one, is held against JAX's XLA path in ``tests/test_torch_xla_path.py``.
 """
-
-import dataclasses
 
 import copy
 
@@ -65,7 +66,12 @@ NUM_OBJECTS = 3
 LAMBDA = 1e-2
 
 
-def _cfg_dict(compute_dtype, noise_std=0.0, hybrid=False):
+def _cfg_dict(compute_dtype, noise_std=0.0, mode="fused", **runtime):
+    """The small config in the YAML's layout.  ``mode`` names the trunk's
+    path by its runtime flags: "fused" (``use_pallas`` +
+    ``pallas_backward``), "hybrid" (``pallas_hybrid``) or "yaml" (the
+    YAML's own runtime, the ray-structured path); ``runtime`` overrides
+    single flags."""
     d = copy.deepcopy(SRN_CARS_CODE)
     for k in ("nerf_coarse", "nerf_fine"):
         d["models"][k]["hidden_size"] = 32
@@ -74,7 +80,12 @@ def _cfg_dict(compute_dtype, noise_std=0.0, hybrid=False):
     d["nerf"]["point_sampler"].update(num_coarse=16, num_fine=8)
     d["nerf"]["embedder"]["num_encoding_fn_xyz"] = 4
     d["nerf"]["train"]["radiance_field_noise_std"] = noise_std
-    d["runtime"].update(compute_dtype=compute_dtype, pallas_hybrid=hybrid)
+    d["runtime"].update(compute_dtype=compute_dtype)
+    if mode == "hybrid":
+        d["runtime"].update(pallas_hybrid=True)
+    elif mode == "fused":
+        d["runtime"].update(use_pallas=True, pallas_backward=True)
+    d["runtime"].update(runtime)
     d["optimizer"].update(lr=1e-2, embedding_lr=5e-2, scheduler_step_size=2)
     return d
 
@@ -323,25 +334,9 @@ def jax_pallas_modes(monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
 
 
-@pytest.mark.parametrize("compute_dtype,hybrid", [
-    ("float32", False), ("float32", True), ("bfloat16", False),
-    ("bfloat16", True)])
-def test_train_step_loss_and_grads_match_jax(compute_dtype, hybrid,
-                                             request):
-    _, js, ps, jstate, _, state = _both(compute_dtype, seed=3,
-                                        hybrid=hybrid)
-    if compute_dtype == "bfloat16":
-        request.getfixturevalue("jax_pallas_modes")
-        js = dataclasses.replace(js, use_pallas=not hybrid,
-                                 pallas_backward=not hybrid,
-                                 pallas_hybrid=hybrid)
-    data = _data(4)
-    k_sel, k_render = jax.random.split(jax.random.PRNGKey(11))
-    (loss, lc, lf, le), want = _jax_loss_and_grads(js, jstate.params, data,
-                                                   k_sel, k_render)
-    inds = np.array(j_select(k_sel, H * W, N_RAYS, 2))
-    m = _port_step(ps, state, data, inds)
-    got = _port_grads(state)
+def check_step(m, losses, got, want, compute_dtype):
+    """A port step's metrics and gradient leaves against JAX's."""
+    loss, lc, lf, le = losses
     # a loss is a mean over many bf16-rounded values, so it agrees to well
     # under one bf16 ulp (2^-8 = 3.9e-3 relative)
     rtol = 1e-5 if compute_dtype == "float32" else 1e-3
@@ -356,7 +351,31 @@ def test_train_step_loss_and_grads_match_jax(compute_dtype, hybrid,
                                        rtol=0, err_msg=k)
         else:
             assert rel_rms(got[k], want[k]) <= BF16_REL_RMS, k
+
+
+def step_against_jax(js, ps, jstate, state, compute_dtype, seed=4):
+    """One port step and JAX's loss and grads from the same state, data
+    and ray indices (perturb off), checked by ``check_step``."""
+    data = _data(seed)
+    k_sel, k_render = jax.random.split(jax.random.PRNGKey(11))
+    losses, want = _jax_loss_and_grads(js, jstate.params, data, k_sel,
+                                       k_render)
+    inds = np.array(j_select(k_sel, H * W, N_RAYS, 2))
+    m = _port_step(ps, state, data, inds)
+    check_step(m, losses, _port_grads(state), want, compute_dtype)
     assert state.step == 1
+
+
+@pytest.mark.parametrize("compute_dtype,hybrid", [
+    ("float32", False), ("float32", True), ("bfloat16", False),
+    ("bfloat16", True)])
+def test_train_step_loss_and_grads_match_jax(compute_dtype, hybrid,
+                                             request):
+    _, js, ps, jstate, _, state = _both(
+        compute_dtype, seed=3, mode="hybrid" if hybrid else "fused")
+    if compute_dtype == "bfloat16":
+        request.getfixturevalue("jax_pallas_modes")
+    step_against_jax(js, ps, jstate, state, compute_dtype)
 
 
 def test_make_train_step_metrics_match_jax():
