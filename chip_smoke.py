@@ -13,9 +13,10 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
   3. kernels — K1, K2, K3 and K4 against their plain PyTorch versions on
                the card at the main paths' shapes (the render's R = 4096
                rays and the train step's R = 16384, S = 32 and 160; K4 also
-               in f32 and at R = 1000, S = 24, a masked tail tile): max abs
-               error and relRMS of every output (gate 1e-2), K2-K4
-               bit-identical across two calls; kernel, plain and (K4)
+               at R = 1000, S = 24, a masked tail tile): max abs error and
+               relRMS of every output (gate 1e-2 in bf16), K1-K4
+               bit-identical across two calls; K1-K4 also in f32 (gate
+               1e-4: both sum in f32, in other orders); kernel, plain and
                library times (CUDA events around back-to-back calls)
                beside the bound.
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
@@ -38,9 +39,13 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
                versions (gradient relRMS gate 1e-2 per leaf; layer_bwd also
                against the xla step), (b) 30 steps of 4 x 4096 rays
                (launches per step, ms per step, rays/s; the fine loss must
-               fall), (c) one fused and one layer_bwd step under
-               ``torch.profiler``; then one f32 step on the ray-structured
-               path (the loss must be finite).
+               fall), (c) one fused, one hybrid and one layer_bwd step
+               under ``torch.profiler`` (a kernel's device time sums all of
+               its launches: K2 / K3 are a row pass and the dW products,
+               K4 a row pass and the dw product); then f32: one step each
+               in fused and hybrid mode against the plain-version step
+               (gradient relRMS gate 1e-4 per leaf, finite loss) and one
+               step on the ray-structured path (finite loss).
   7. result  — the kernel table as one JSON line, the card line, and the
                last line ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +90,7 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 REL_RMS_GATE = 1e-2
+F32_REL_RMS_GATE = 1e-4     # f32 kernels against f32 plain versions
 PSNR_GATE = 40.0
 SRN_FOCAL_128 = 131.25      # SRN cars intrinsics at 128x128, cx = cy = 64
 
@@ -174,9 +180,11 @@ def bound_ms(cost) -> tuple:
 def profile_call(fn, args, unprofiled_ms, kernels: dict) -> dict:
     """Device time by kernel over one call of ``fn`` under
     ``torch.profiler`` (one stream, so the sum of kernel times is the busy
-    time), and the time of each kernel whose name holds the substring
-    ``kernels[label]``.  Only device-side entries count: an operator's own
-    entry repeats the time of the kernels it launched."""
+    time), and for each label of ``kernels`` the time of every device
+    kernel whose name holds one of its substrings (a port kernel that runs
+    as several launches, such as K2's row pass and dW products, counts
+    them all).  Only device-side entries count: an operator's own entry
+    repeats the time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -192,8 +200,9 @@ def profile_call(fn, args, unprofiled_ms, kernels: dict) -> dict:
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3)
     busy = sum(by_name.values())
-    kernel_ms = {label: sum(v for k, v in by_name.items() if sub in k)
-                 for label, sub in kernels.items()}
+    kernel_ms = {label: sum(v for k, v in by_name.items()
+                            if any(sub in k for sub in subs))
+                 for label, subs in kernels.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
             "unprofiled_ms": unprofiled_ms,
@@ -231,6 +240,72 @@ def bwd_cost(R, S, weights, per_ray, F, stored) -> dict:
             + weight_bytes + grad_bytes}
 
 
+def trunk_backward_library(pts, per_ray, b1, weights, g, acts=None):
+    """The library yardstick of K2 (K3 with ``acts``): the plain chain of
+    ``trunk_backward_plain`` with every product a bf16 cuBLAS GEMM (f32
+    accumulation, bf16 out) and the same elementwise ops.  Timed only;
+    nothing on the port's path calls it."""
+    bf, f32 = torch.bfloat16, torch.float32
+    R, S = pts.shape[:2]
+    N = R * S
+
+    def mm(x, w):
+        return x.to(bf) @ w.to(bf)
+
+    def mm_t(x, w):
+        return x.to(bf) @ w.to(bf).t()
+
+    def d_w(x, y):
+        return x.to(bf).t() @ y.to(bf)
+
+    def zero_dead(a, v):
+        return torch.where(a > 0, v,
+                           torch.zeros((), dtype=bf, device=a.device))
+
+    bands = weights["E"][0, 0::3].float()
+    scaled = (pts[..., None, :] * bands[:, None]).reshape(N, -1)
+    sn, cs = torch.sin(scaled), torch.cos(scaled)
+    pts2 = pts.reshape(N, 3)
+    if acts is None:
+        def rep(k):
+            return per_ray[k].to(bf).repeat_interleave(S, dim=0)
+        h = mm(sn, weights["w1s"]) + mm(cs, weights["w1c"])
+        if weights["w1x"] is not None:
+            h = h + mm(pts2, weights["w1x"])
+        h1 = torch.relu(h + b1.to(bf))
+        h2 = torch.relu(mm(h1, weights["w2"]) + rep("zs1p"))
+        feat = mm(h2, weights["wof"]) + rep("featp")
+        v1 = torch.relu(mm(feat, weights["wd"]) + rep("dirp"))
+        v2 = torch.relu(mm(v1, weights["wd2"]) + weights["bd2"].to(bf))
+    else:
+        h1, h2, feat, v1, v2 = (acts[k] for k in ("h1", "h2", "feat", "v1",
+                                                  "v2"))
+    g = g.reshape(N, 4).to(f32)
+    g_rgb, g_sig = g[:, :3], g[:, 3:]
+    g_v2 = zero_dead(v2, mm_t(g_rgb, weights["wr"]))
+    g_v1 = zero_dead(v1, mm_t(g_v2, weights["wd2"]))
+    g_feat = mm_t(g_v1, weights["wd"])
+    g_h2 = zero_dead(h2, mm_t(g_feat, weights["wof"])
+                     + mm_t(g_sig, weights["wos"]))
+    g_h1 = zero_dead(h1, mm_t(g_h2, weights["w2"]))
+    g_scaled = (mm_t(g_h1, weights["w1s"]).float() * cs
+                - mm_t(g_h1, weights["w1c"]).float() * sn).reshape(N, -1, 3)
+    g_pts = (g_scaled * bands[:, None]).sum(dim=1)
+    if weights["w1x"] is not None:
+        g_pts = g_pts + mm_t(g_h1, weights["w1x"]).float()
+
+    def ray_sum(x):
+        return x.float().reshape(R, S, -1).sum(dim=1)
+
+    per = [ray_sum(v) for v in (g_h2, g_feat, g_sig, g_v1, g_rgb)]
+    dws = [d_w(sn, g_h1), d_w(cs, g_h1), d_w(h1, g_h2), d_w(h2, g_feat),
+           d_w(h2, g_sig), d_w(feat, g_v1), d_w(v1, g_v2), d_w(v2, g_rgb),
+           g_v2.float().sum(dim=0), g_h1.float().sum(dim=0)]
+    if weights["w1x"] is not None:
+        dws.append(d_w(pts2, g_h1))
+    return g_pts, per, dws
+
+
 def bwd_outputs(res) -> dict:
     """The outputs of a trunk backward, by name."""
     g_pts, g_per_ray, db1, dw = res
@@ -243,8 +318,8 @@ def bwd_outputs(res) -> dict:
 def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
     """K2 and K3 against their plain version on the card: every output at
     R = 4096 rays and at the train step's R = len(ro) rays, S = 32 and 160
-    (relRMS gate, bit-identity across two calls), and times at the train
-    step's R."""
+    (relRMS gate, bit-identity across two calls), and kernel, plain and
+    library (``trunk_backward_library``) times at the train step's R."""
     cfg = model.cfg
     F = settings.num_encoding_fn_xyz
     R_step = ro.shape[0]
@@ -310,21 +385,98 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
                        "rel_rms": errs[worst][1], "worst": worst}
                 del got, again, want
                 if R == R_step:
+                    def library():
+                        return trunk_backward_library(pts, per_ray, b1,
+                                                      weights, g, a)
+
                     ms = time_ms(kern, calls=3, repeats=5, warmup=1)
                     plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
+                    library_ms = time_ms(library, calls=3, repeats=5,
+                                         warmup=1)
                     cost = bwd_cost(R, S, weights, per_ray, F, a is not None)
                     b_ms, b_by = bound_ms(cost)
                     row.update({"ms": ms, "plain_ms": plain_ms,
+                                "library_ms": library_ms,
                                 "bound_ms": b_ms, "bound_by": b_by,
                                 "cost": cost})
                     print(f"{name} R={R} S={S}: ms={ms:.6g} "
-                          f"plain_ms={plain_ms:.6g} bound_ms={b_ms:.6g} "
+                          f"plain_ms={plain_ms:.6g} "
+                          f"library_ms={library_ms:.6g} bound_ms={b_ms:.6g} "
                           f"({b_by}) achieved="
                           f"{cost['bf16_flops'] / ms / 1e9:.6g} TFLOP/s "
                           f"on {card}", flush=True)
                 out[name].append(row)
             del acts
             torch.cuda.empty_cache()
+    return out
+
+
+def check_f32(settings, model, ro, rd, zs, zt, R) -> dict:
+    """K1, K2 and K3 in f32 (``model`` computes in float32) against their
+    plain versions at R rays, S = 32 and 160: every output at relRMS <=
+    ``F32_REL_RMS_GATE`` and bit-identical across two calls."""
+    F = settings.num_encoding_fn_xyz
+    cd = model.cfg.cdtype
+    if cd is not None:
+        raise RuntimeError(f"check_f32 needs an f32 model, got {cd}")
+    ro, rd, zs, zt = ro[:R], rd[:R], zs[:R], zt[:R]
+    viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
+                                  settings.include_input_dir,
+                                  settings.log_sampling_dir)
+    with torch.no_grad():
+        per_ray = per_ray_parts(model, dir_enc, zs, zt)
+        weights = kernel_weights(model, F, settings.log_sampling_xyz)
+    b1 = weights["b1"]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    out = {"K1": [], "K2": [], "K3": []}
+    for S in (settings.num_coarse, settings.num_coarse + settings.num_fine):
+        z = torch.sort(settings.near + (settings.far - settings.near)
+                       * torch.rand(R, S, generator=gen), dim=-1).values
+        pts = (ro[:, None, :] + rd[:, None, :]
+               * z.cuda()[..., None]).contiguous()
+        g = torch.randn(R, S, 4, generator=gen).cuda()
+        with torch.no_grad():
+            _, acts = hybrid_forward_plain(pts, per_ray, weights,
+                                           compute_dtype=cd)
+        cases = (("K1", lambda: {"raw": trunk_forward(
+                    pts, per_ray, weights, compute_dtype=cd)},
+                  lambda: {"raw": trunk_forward_plain(
+                      pts, per_ray, weights, compute_dtype=cd)}),)
+        for name, a in (("K2", None), ("K3", acts)):
+            cases += ((name,
+                       lambda a=a: bwd_outputs(trunk_backward(
+                           pts, per_ray, b1, weights, g, a,
+                           compute_dtype=cd)),
+                       lambda a=a: bwd_outputs(trunk_backward_plain(
+                           pts, per_ray, b1, weights, g, a,
+                           compute_dtype=cd))),)
+        for name, kern, plain in cases:
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            errs = {}
+            for k, w in want.items():
+                if not torch.equal(got[k], again[k]):
+                    raise RuntimeError(f"f32 {name} {k} differs between two "
+                                       f"calls at R={R}, S={S}")
+                d = got[k] - w
+                errs[k] = (float(d.abs().max()),
+                           float(torch.linalg.norm(d) / torch.linalg.norm(w)))
+            worst = max(errs, key=lambda k: errs[k][1])
+            print(f"{name} f32 R={R} S={S}: every output bit-identical across "
+                  f"two calls; worst {worst} max_abs_err "
+                  f"{errs[worst][0]:.3g} rel_rms {errs[worst][1]:.3g}",
+                  flush=True)
+            if not errs[worst][1] <= F32_REL_RMS_GATE:
+                raise RuntimeError(f"f32 {name} disagrees with its plain "
+                                   f"version at R={R}, S={S}: {worst} relRMS "
+                                   f"{errs[worst][1]} > {F32_REL_RMS_GATE}")
+            out[name].append({"R": R, "S": S, "worst": worst,
+                              "max_abs_err": max(v[0] for v in errs.values()),
+                              "rel_rms": errs[worst][1]})
+            del got, again, want
+        del acts
+        torch.cuda.empty_cache()
     return out
 
 
@@ -354,7 +506,7 @@ K4_CASES = (("coarse per-ray", 16384, 32, True, torch.bfloat16),
 
 def check_k4(K, N, card) -> list:
     """K4 against its plain version on the card: dx, dw and db at relRMS
-    <= 1e-2 and bit-identical across two calls, at every case of
+    <= 1e-2 (1e-4 in f32) and bit-identical across two calls, at every case of
     ``K4_CASES``; kernel, plain and library times at the flagship step's
     shapes."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
@@ -402,10 +554,11 @@ def check_k4(K, N, card) -> list:
                 f"bit-identical across two calls; max_abs_err / rel_rms: "
                 + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
                             for k, v in errs.items()))
-        if not errs[worst][1] <= REL_RMS_GATE:
+        gate = REL_RMS_GATE if dt == torch.bfloat16 else F32_REL_RMS_GATE
+        if not errs[worst][1] <= gate:
             raise RuntimeError(f"K4 disagrees with its plain version in "
                                f"case {name}: {worst} relRMS "
-                               f"{errs[worst][1]} > {REL_RMS_GATE}")
+                               f"{errs[worst][1]} > {gate}")
         if R == 16384:
             wc = w.to(dt)
 
@@ -518,6 +671,21 @@ TRAIN_MODES = {
     "xla": ({}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0}),
     "layer_bwd": ({"pallas_layer_bwd": True},
                   {"K1": 0, "K2": 0, "K3": 0, "K4": 6}),
+}
+
+
+# the device kernels of each port kernel, by name substring, in the modes
+# that are profiled: K2 and K3 are a row pass, the dW products (xtg.cuh)
+# and two sums; K4 a row pass, the dw product and its sums
+XTG = ("xtg_wgmma_kernel", "xtg_simt_kernel", "xtg_reduce")
+PROFILE_LABELS = {
+    "fused": {"K1": ("trunk_fwd_kernel",),
+              "K2": ("trunk_bwd_rows_kernel", *XTG),
+              "K2 row pass": ("trunk_bwd_rows_kernel",), "K2 dW": XTG},
+    "hybrid": {"K3": ("trunk_bwd_rows_kernel", *XTG),
+               "K3 row pass": ("trunk_bwd_rows_kernel",), "K3 dW": XTG},
+    "layer_bwd": {"K4": ("layer_bwd_rows", *XTG),
+                  "K4 row pass": ("layer_bwd_rows",), "K4 dw": XTG},
 }
 
 
@@ -674,11 +842,8 @@ def train_phase(size, dirs, teacher, tables, card) -> dict:
         results[mode] = row
 
         # (c) one step under torch.profiler
-        if mode in ("fused", "layer_bwd"):
-            labels = ({"K1": "trunk_fwd_kernel", "K2": "trunk_bwd_kernel",
-                       "reduce": "trunk_bwd_reduce"} if mode == "fused"
-                      else {"K4": "layer_bwd_kernel",
-                            "reduce": "layer_bwd_reduce"})
+        if mode in PROFILE_LABELS:
+            labels = PROFILE_LABELS[mode]
             prof = profile_call(step, (dirs, poses, pixels, ids, gen),
                                 step_ms, labels)
             if prof["device_busy_ms"]:
@@ -696,6 +861,45 @@ def train_phase(size, dirs, teacher, tables, card) -> dict:
             print(json.dumps({f"train_{mode}_profile": prof}), flush=True)
             row["profile"] = prof
         del student, step
+        torch.cuda.empty_cache()
+
+    # f32 in the kernel modes: one step with K1 + K2 (fused) or K3 (hybrid)
+    # against the same step on the plain versions
+    for mode in ("fused", "hybrid"):
+        flags, want_launches = TRAIN_MODES[mode]
+        _, s32 = mode_config({**flags, "compute_dtype": "float32"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, grads, loss, launched = one_step(s32)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        del st
+        st, plain_grads, plain_loss, plain_launched = one_step(s32, True)
+        del st
+        if launched != want_launches or any(plain_launched.values()):
+            raise RuntimeError(f"train f32 {mode}: launched {launched} (plain "
+                               f"{plain_launched}), expected {want_launches}")
+        if not loss == loss or abs(loss) == float("inf"):
+            raise RuntimeError(f"train f32 {mode}: the loss is not finite "
+                               f"({loss})")
+        rel = grad_rel_rms(grads, plain_grads)
+        worst = max(rel, key=rel.get)
+        print(f"train f32 {mode}: one step of {B * n_rays} rays: loss "
+              f"kernels={loss:.8g} plain={plain_loss:.8g}; gradient relRMS "
+              f"over {len(rel)} leaves: worst {worst} {rel[worst]:.4g}, "
+              f"median {statistics.median(rel.values()):.4g}; launches "
+              f"{launched}; "
+              f"{step_ms:.6g} ms with set-up on {card}", flush=True)
+        if not rel[worst] <= F32_REL_RMS_GATE:
+            raise RuntimeError(f"train f32 {mode}: {worst} gradient relRMS "
+                               f"{rel[worst]} > {F32_REL_RMS_GATE}")
+        if not abs(loss - plain_loss) <= 1e-4 * plain_loss:
+            raise RuntimeError(f"train f32 {mode}: loss {loss} vs plain "
+                               f"{plain_loss}")
+        results[f"f32_{mode}"] = {"loss": loss, "plain_loss": plain_loss,
+                                  "grad_rel_rms_worst": [worst, rel[worst]],
+                                  "ms_with_setup": step_ms,
+                                  "launches": launched}
+        del grads, plain_grads
         torch.cuda.empty_cache()
 
     # one f32 step at the flagship width, the YAML's runtime
@@ -789,6 +993,14 @@ def main():
                     z_t.expand(n_step, -1), card)
     h = settings.fine_cfg.hidden_size
     k4 = check_k4(h, h, card)
+    # the f32 instantiations of K1-K3, on an f32 model from its own seed
+    _, f32_settings = mode_config({"compute_dtype": "float32"})
+    model32 = CodeNeRF(f32_settings.fine_cfg, "cuda",
+                       torch.Generator(device="cpu").manual_seed(SEED + 7))
+    f32_cases = check_f32(f32_settings, model32, ro_all[:n_step].contiguous(),
+                    rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
+                    z_t.expand(n_step, -1), chunk)
+    del model32
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -885,7 +1097,7 @@ def main():
 
     t0 = time.perf_counter()
     prof = profile_call(render, (models, dirs, pose, z_s, z_t), ms_img,
-                        {"K1": "trunk_fwd_kernel"})
+                        {"K1": ("trunk_fwd_kernel",)})
     if prof["device_busy_ms"]:
         print(f"profile: device busy {prof['device_busy_ms']:.6g} ms per "
               f"image against the unprofiled {ms_img:.6g} ms (idle share "
@@ -934,6 +1146,7 @@ def main():
         "train_step_plain_ms": step_k1["plain_ms"],
         "train_step_bound_ms": bound_ms(step_k1_cost)[0],
         "shapes": k1["shapes"],
+        "f32": f32_cases["K1"],
     }]
     for name, mode in (("K2", "fused"), ("K3", "hybrid")):
         rows = [r for r in bwd[name] if r["R"] == n_step]
@@ -952,13 +1165,16 @@ def main():
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "library_ms": None,
-            "library_note": "no single PyTorch call computes the trunk "
-                            "backward",
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "library_note": "the plain chain with bf16 cuBLAS products "
+                            "(f32 accumulation) and the same elementwise ops "
+                            "(trunk_backward_library)",
             "per": f"one flagship train step ({mode} mode): one launch at "
                    f"each S of {[r['S'] for r in rows]}, R={rows[0]['R']}; "
                    f"launches counted over {TRAIN_STEPS} steps",
             "shapes": bwd[name],
+            "f32": f32_cases[name],
+            "f32_train_step": train[f"f32_{mode}"],
         })
     # one layer_bwd step: layer_xyz2 and layer_dir1 (per-ray rows) and
     # layer_dir2 (a bias) at each pass's S

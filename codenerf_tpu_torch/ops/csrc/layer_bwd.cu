@@ -1,5 +1,4 @@
-// K4: the single-pass backward of one linear + relu layer for Hopper
-// (sm_90a).
+// K4: the backward of one linear + relu layer for Hopper (sm_90a).
 //
 // Replaces the TPU kernel codenerf_tpu/ops/layer_bwd.py::
 // linear_relu_bwd_pallas, the backward of _dot_add_relu_pl
@@ -13,10 +12,9 @@
 //                                            over each ray's S rows [R, N]
 //                                            for per-ray rows
 //
-// Operands are bf16 (the flagship; products on the tensor cores through
-// wmma 16x16x16 with f32 accumulators) or f32 (products on the CUDA cores
-// in f32 fma, no TF32).  K and N are multiples of 16; M is any count and
-// S any ray length.
+// Operands are bf16 (the flagship) or f32 (products on the CUDA cores in
+// f32 fma, no TF32).  K and N are multiples of 16 (at most 256 in bf16);
+// M is any count and S any ray length.
 //
 // Bound on the H100: each row reads x, y and g and writes dx, 2 KB a row
 // at K = N = 256 in bf16, against 4 K N = 262,144 FLOP of products: 128
@@ -26,386 +24,329 @@
 // 5.77 ms at 3.35 TB/s, against 2.50 ms for the products at 989 TFLOP/s
 // (chip_smoke.py's k4_cost counts this run's inputs).
 //
-// Design.  The TPU kernel's sequential grid summed dw and db in output
-// blocks it revisited in order; CUDA blocks run concurrently and in no
-// order.  So the grid is persistent (about one block per SM), and each
-// block owns a contiguous range of whole rays (of rows, for a bias) and
-// walks it in row tiles:
-//   * per tile, the block stages x and gp (the mask applied to g as y and
-//     g arrive) in shared memory, reading x, y and g once with streaming
-//     loads; gp never goes to device memory;
-//   * dx = gp w^T comes from the staged gp and w (read from L2) and is
-//     rounded and stored with streaming stores;
-//   * dw: each warp owns fixed 16x16 blocks of dw and adds the tile's
-//     x^T gp to them in the block's own f32 slab in global memory (the
-//     accumulator fragments are loaded from and stored to it), so every
-//     element is summed in row order by one warp; ~132 slabs of 256 x 256
-//     f32 are 34.7 MB, inside the 50 MB L2;
-//   * db: one thread per column walks the tile's rows in order; per-ray
-//     sums are written to the ray's row when its last row passes (the
-//     block owns the ray), a bias's sum goes to the slab at the end;
-//   * layer_bwd_reduce sums the slabs in block order.
-// No atomics: two calls on the same card give the same bits.  The slab
-// read-modify-write moves 512 KB per 128-row tile through L2, 4 KB a row
-// against the 2 KB the row needs from device memory; wgmma, TMA and a
-// dw that stays on chip longer are later work.
+// What held the first port back (39.6 ms per step, 14-15% of the byte
+// rate): one block per SM (144 KB of shared memory, 207 registers) with no
+// pipeline (the loads of x, y and g, the wmma products and the dw update
+// ran one after another), w's fragments re-read from L2 for every tile,
+// and dw summed per block in an f32 slab read and written for every
+// 128-row tile: 4 KB a row through L2 against the 2 KB the row needs.
+//
+// Two designs were weighed.  (a) One pass on a cluster of four blocks with
+// TMA multicast of x, y and g, each block keeping a 64-column slice of w
+// and of dw (as a wgmma accumulator over its whole row range), would move
+// only the bound's 2 KB a row; it needs cluster launch, multicast barriers
+// across four SMs and a dx product split over the cluster.  (b) Two
+// kernels, mask + dx + db, then a tall dw product, move ~3 KB a row (gp
+// is written once in bf16 and read once) with two simple kernels and the
+// weight-gradient product K2 / K3 already use (xtg.cuh).  (b) is taken:
+// ~1.5x the bound's bytes, each kernel streaming at the card's rate.
+//
+//   1. layer_bwd_rows_kernel: a persistent grid whose blocks own whole
+//      rays (whole 64-row tiles for a bias).  Each block keeps w in shared
+//      memory for its whole range (bf16: 128 KB at K = N = 256, K-major,
+//      128-byte swizzled), and per 64-row tile: reads y and g (the next
+//      tile's loads are issued before this tile's product, so they are in
+//      flight while it runs), writes gp to shared memory and device memory,
+//      runs dx = gp w^T as wgmma m64n128k16 (two warpgroups, 64 f32
+//      registers each) and rounds dx to bf16 as it stores it; while the
+//      wgmma runs, one thread per column sums gp into db in row order
+//      (per-ray sums written when the ray's last row passes; a bias's sum
+//      to the block's partial).
+//   2. xtg.cuh: dw = x^T gp as a tall split-K wgmma product, partials
+//      summed in split order; a bias's db partials summed in block order.
+// No atomics: two calls on the same card give the same bits.  f32 keeps
+// the same two steps with CUDA-core products (32-row tiles).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "xtg.cuh"
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;  // shared-memory row padding, elements
+constexpr int NTHREADS = 256;
+constexpr int KR = 256;  // rows of w's shared-memory tile (bf16): K <= 256
 
-// rows per tile: bf16 tiles of x and gp at K = N = 256 take 132 KB
 template <typename T>
-__host__ __device__ constexpr int tile_rows() { return sizeof(T) == 2 ? 128 : 32; }
+__host__ __device__ constexpr int tile_rows() {
+  return sizeof(T) == 2 ? 64 : 32;
+}
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
 
+template <typename T>
 struct Args {
-  const void* x;   // [M, K]
-  const void* w;   // [K, N], the operand type
-  const void* y;   // [M, N]
-  const void* g;   // [M, N]
-  void* dx;        // [M, K]
-  float* slabs;    // [G, K N (+ N for a bias)]
-  float* db_rows;  // [R, N] per-ray sums, or null for a bias
+  const T* w;       // [K, N]
+  const T* y;       // [M, N]
+  const T* g;       // [M, N]
+  T* gp;            // [M, N]
+  T* dx;            // [M, K]
+  float* db_rows;   // [R, N] per-ray sums, or null for a bias
+  float* db_part;   // [G, N] per-block sums of a bias
   long long M;
-  int S, K, N, G;
+  int S, K, N;
 };
 
-size_t smem_bytes(int bf, int K, int N) {
-  const size_t tm = bf ? tile_rows<bf16>() : tile_rows<float>();
-  const size_t es = bf ? 2 : 4;
-  return tm * (K + PAD) * es + tm * (N + PAD) * es + (bf ? NWARPS * 256 * 4 : 0) +
-         (size_t)N * 4;
+// shared memory of the row pass: bf16 w and gp column blocks of 64, the dx
+// tile (row stride K + 8), the db sums, alignment slack; f32 a padded gp
+// tile and the db sums
+__host__ __device__ inline int rows_smem_bytes(int bf, int K, int N) {
+  const int ncb = (N + 63) / 64;
+  return bf ? ncb * (KR * 128 + 64 * 128) + 64 * (K + 8) * 2 + N * 4 + 1024
+            : tile_rows<float>() * (N + 4) * 4 + N * 4;
 }
 
-// Stage rows [row0, row0 + nvalid) of x and gp = where(y > 0, g, 0) in
-// shared memory; rows from nvalid to the tile's end are zero.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const Args& p, long long row0, int nvalid, T* xs,
-                                           T* gps) {
-  constexpr int TM = tile_rows<T>();
-  constexpr int V = 16 / sizeof(T);
-  const int K = p.K, N = p.N, ldx = K + PAD, ldg = N + PAD;
-  const T* x = static_cast<const T*>(p.x);
-  const T* y = static_cast<const T*>(p.y);
-  const T* g = static_cast<const T*>(p.g);
-  const int kv = K / V, nv = N / V;
-  for (int i = threadIdx.x; i < TM * kv; i += NTHREADS) {
-    const int r = i / kv, c = (i - r * kv) * V;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) v = __ldcs(reinterpret_cast<const uint4*>(x + (row0 + r) * K + c));
-    *reinterpret_cast<uint4*>(xs + r * ldx + c) = v;
-  }
-  for (int i = threadIdx.x; i < TM * nv; i += NTHREADS) {
-    const int r = i / nv, c = (i - r * nv) * V;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) {
-      const size_t off = (size_t)(row0 + r) * N + c;
-      const uint4 yv = __ldcs(reinterpret_cast<const uint4*>(y + off));
-      const uint4 gv = __ldcs(reinterpret_cast<const uint4*>(g + off));
-      const T* ye = reinterpret_cast<const T*>(&yv);
-      const T* ge = reinterpret_cast<const T*>(&gv);
-      T* oe = reinterpret_cast<T*>(&out);
-      uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      const T* z = reinterpret_cast<const T*>(&zero);
-#pragma unroll
-      for (int j = 0; j < V; ++j) oe[j] = to_f(ye[j]) > 0.0f ? ge[j] : z[j];
-    }
-    *reinterpret_cast<uint4*>(gps + r * ldg + c) = out;
-  }
-}
-
-// dx rows of the tile (bf16): warp tasks of 64 rows x 32 columns of dx,
-// gp from shared memory, w^T fragments from global memory (col-major view
-// of the row-major [K, N] w).
-__device__ __forceinline__ void dx_tile(const Args& p, const bf16* gps, long long row0,
-                                        int nvalid, float* stage) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int K = p.K, N = p.N, ldg = N + PAD;
-  const bf16* w = static_cast<const bf16*>(p.w);
-  bf16* dx = static_cast<bf16*>(p.dx);
-  float* st = stage + warp * 256;
-  const int ncol = (K + 31) / 32, nrow = (nvalid + 63) / 64;
-  for (int task = warp; task < nrow * ncol; task += NWARPS) {
-    const int rb = (task / ncol) * 64, k0 = (task % ncol) * 32;
-    const bool two = k0 + 16 < K;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-      wmma::load_matrix_sync(b[0], w + (size_t)k0 * N + n0, N);
-      if (two) wmma::load_matrix_sync(b[1], w + (size_t)(k0 + 16) * N + n0, N);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (rb + i * 16 >= nvalid) break;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, gps + (rb + i * 16) * ldg + n0, ldg);
-        wmma::mma_sync(acc[i][0], a, b[0], acc[i][0]);
-        if (two) wmma::mma_sync(acc[i][1], a, b[1], acc[i][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (rb + i * 16 >= nvalid) break;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (j == 1 && !two) break;
-        wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        // lane -> row lane / 2, columns (lane % 2) * 8 .. + 8: one 16-byte store
-        const int r = rb + i * 16 + (lane >> 1), c = (lane & 1) * 8;
-        if (r < nvalid) {
-          uint4 out;
-          unsigned short* h = reinterpret_cast<unsigned short*>(&out);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(st[(lane >> 1) * 16 + c + e]));
-          __stcs(reinterpret_cast<uint4*>(dx + (row0 + r) * K + k0 + j * 16 + c), out);
-        }
-        __syncwarp();
-      }
-    }
-  }
-}
-
-// slab[K, N] (+)= xs^T gps over the tile's rows (bf16): warp tasks of
-// 32 x 64 blocks of dw, each element summed by one warp in row order.
-__device__ __forceinline__ void dw_tile(const Args& p, const bf16* xs, const bf16* gps,
-                                        int nvalid, float* slab, bool first) {
-  const int warp = threadIdx.x >> 5;
-  const int K = p.K, N = p.N, ldx = K + PAD, ldg = N + PAD;
-  const int nk = (K + 31) / 32, nn = (N + 63) / 64;
-  const int mend = (nvalid + 15) & ~15;  // rows past nvalid are zero
-  for (int task = warp; task < nk * nn; task += NWARPS) {
-    const int k0 = (task / nn) * 32, n0 = (task % nn) * 64;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + i * 16 >= K || n0 + j * 16 >= N) continue;
-        if (first)
-          wmma::fill_fragment(acc[i][j], 0.0f);
-        else
-          wmma::load_matrix_sync(acc[i][j], slab + (size_t)(k0 + i * 16) * N + n0 + j * 16, N,
-                                 wmma::mem_row_major);
-      }
-    for (int m0 = 0; m0 < mend; m0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (k0 + i * 16 < K) wmma::load_matrix_sync(a[i], xs + m0 * ldx + k0 + i * 16, ldx);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (n0 + j * 16 >= N) continue;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, gps + m0 * ldg + n0 + j * 16, ldg);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (k0 + i * 16 < K) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + i * 16 >= K || n0 + j * 16 >= N) continue;
-        wmma::store_matrix_sync(slab + (size_t)(k0 + i * 16) * N + n0 + j * 16, acc[i][j], N,
-                                wmma::mem_row_major);
-      }
-  }
-}
-
-// The same two products in f32 on the CUDA cores: one thread per output
-// element, sums in a fixed order.
-__device__ __forceinline__ void dx_tile(const Args& p, const float* gps, long long row0,
-                                        int nvalid, float*) {
-  const int K = p.K, N = p.N, ldg = N + PAD;
-  const float* w = static_cast<const float*>(p.w);
-  float* dx = static_cast<float*>(p.dx);
-  for (int i = threadIdx.x; i < nvalid * K; i += NTHREADS) {
-    const int r = i / K, k = i - r * K;
-    const float* gr = gps + r * ldg;
-    const float* wr = w + (size_t)k * N;
-    float acc = 0.0f;
-    for (int n = 0; n < N; ++n) acc = fmaf(gr[n], __ldg(wr + n), acc);
-    __stcs(dx + (row0 + r) * K + k, acc);
-  }
-}
-
-__device__ __forceinline__ void dw_tile(const Args& p, const float* xs, const float* gps,
-                                        int nvalid, float* slab, bool first) {
-  const int K = p.K, N = p.N, ldx = K + PAD, ldg = N + PAD;
-  for (int i = threadIdx.x; i < K * N; i += NTHREADS) {
-    const int k = i / N, n = i - k * N;
-    float acc = first ? 0.0f : slab[i];
-    for (int m = 0; m < nvalid; ++m) acc = fmaf(xs[m * ldx + k], gps[m * ldg + n], acc);
-    slab[i] = acc;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 1) layer_bwd_kernel(Args p) {
-  constexpr int TM = tile_rows<T>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int K = p.K, N = p.N, ldg = N + PAD;
+// db: one thread a column walks the tile's rows in order; a per-ray sum is
+// written when its ray's last row passes.  get(r, c) reads gp.
+template <typename T, class Get>
+__device__ __forceinline__ void db_walk(const Args<T>& p, long long row0, int nvalid,
+                                        float* dbacc, Get get) {
   const bool per_ray = p.db_rows != nullptr;
-  T* xs = reinterpret_cast<T*>(smem);
-  T* gps = xs + TM * (K + PAD);
-  float* stage = reinterpret_cast<float*>(gps + TM * ldg);
-  float* dbacc = stage + (sizeof(T) == 2 ? NWARPS * 256 : 0);
+  const int pos0 = per_ray ? (int)(row0 % p.S) : 0;
+  const long long ray0 = per_ray ? row0 / p.S : 0;
+  for (int c = threadIdx.x; c < p.N; c += NTHREADS) {
+    float acc = dbacc[c];
+    int pos = pos0;
+    long long ray = ray0;
+    for (int r = 0; r < nvalid; ++r) {
+      acc += get(r, c);
+      if (per_ray && ++pos == p.S) {
+        p.db_rows[ray * p.N + c] = acc;
+        acc = 0.0f;
+        pos = 0;
+        ++ray;
+      }
+    }
+    dbacc[c] = acc;
+  }
+}
 
-  // this block's rows: whole rays, or whole tiles for a bias
-  const long long unit = per_ray ? p.S : TM;
-  const long long units = per_ray ? p.M / p.S : (p.M + TM - 1) / TM;
-  const long long u0 = units * blockIdx.x / p.G, u1 = units * (blockIdx.x + 1) / p.G;
-  const long long r_begin = u0 * unit;
-  const long long r_end = u1 * unit < p.M ? u1 * unit : p.M;
-  const size_t stride = (size_t)K * N + (per_ray ? 0 : N);
-  float* slab = p.slabs + (size_t)blockIdx.x * stride;
+// this block's rows: whole rays, or whole tiles for a bias
+__device__ __forceinline__ void block_rows(long long M, int S, bool per_ray, int tm,
+                                           long long* r_begin, long long* r_end) {
+  const long long unit = per_ray ? S : tm;
+  const long long units = per_ray ? M / S : (M + tm - 1) / tm;
+  const long long u0 = units * blockIdx.x / gridDim.x, u1 = units * (blockIdx.x + 1) / gridDim.x;
+  *r_begin = u0 * unit;
+  *r_end = u1 * unit < M ? u1 * unit : M;
+}
 
-  for (int c = threadIdx.x; c < N; c += NTHREADS) dbacc[c] = 0.0f;
-  bool first = true;
+__global__ void __launch_bounds__(NTHREADS, 1) layer_bwd_rows_bf16(const Args<bf16> p) {
+  constexpr int TM = 64, VPT = 8;  // VPT: 16-byte vectors of y (and g) a thread loads per tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* const gen_base = smem_raw + (base - hopper::smem_u32(smem_raw));
+  const int K = p.K, N = p.N, ncb = (N + 63) / 64, nv = N / 8;
+  const uint32_t wS = base, gS = base + ncb * KR * 128;
+  unsigned char* const gpS = gen_base + ncb * KR * 128;
+  bf16* const dxS = reinterpret_cast<bf16*>(gen_base + ncb * (KR * 128 + 64 * 128));
+  const int ldd = K + 8;
+  float* const dbacc = reinterpret_cast<float*>(dxS + 64 * ldd);
+  const int tid = threadIdx.x, wg = tid >> 7, wl = (tid & 127) >> 5, lane = tid & 31;
+  const bool per_ray = p.db_rows != nullptr;
+  long long r_begin, r_end;
+  block_rows(p.M, p.S, per_ray, TM, &r_begin, &r_end);
+
+  // w, K-major and swizzled, zero past K and N; gp's tile zero
+  for (int v = tid; v < KR * ncb * 8; v += NTHREADS) {
+    const int k = v / (ncb * 8), c = v - k * ncb * 8;
+    const bool ok = k < K && c * 8 < N;
+    hopper::cp_async16(wS + (c >> 3) * (KR * 128) + hopper::swz(k, c & 7),
+                       ok ? p.w + (size_t)k * N + c * 8 : p.w, ok ? 16 : 0);
+  }
+  hopper::cp_async_commit();
+  for (int v = tid; v < ncb * 64 * 8; v += NTHREADS)
+    reinterpret_cast<uint4*>(gpS)[v] = make_uint4(0u, 0u, 0u, 0u);
+  for (int c = tid; c < N; c += NTHREADS) dbacc[c] = 0.0f;
+
+  uint4 yv[VPT], gv[VPT];
+  auto fetch = [&](long long row0) {
+    const int nvalid = (int)(r_end - row0 < TM ? r_end - row0 : TM);
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = tid + j * NTHREADS, r = v / nv, c = v - r * nv;
+      if (r < nvalid) {
+        const size_t off = (size_t)(row0 + r) * N + c * 8;
+        yv[j] = __ldcs(reinterpret_cast<const uint4*>(p.y + off));
+        gv[j] = __ldcs(reinterpret_cast<const uint4*>(p.g + off));
+      }
+    }
+  };
+  if (r_begin < r_end) fetch(r_begin);
+  hopper::cp_async_wait<0>();
+
+  float acc[64];
   for (long long row0 = r_begin; row0 < r_end; row0 += TM) {
     const int nvalid = (int)(r_end - row0 < TM ? r_end - row0 : TM);
-    stage_tile<T>(p, row0, nvalid, xs, gps);
-    __syncthreads();
-
-    // db: each column's rows in order; a per-ray sum is written when its
-    // ray's last row passes
-    const int pos0 = per_ray ? (int)(row0 % p.S) : 0;
-    const long long ray0 = per_ray ? row0 / p.S : 0;
-    for (int c = threadIdx.x; c < N; c += NTHREADS) {
-      float acc = dbacc[c];
-      int pos = pos0;
-      long long ray = ray0;
-      for (int r = 0; r < nvalid; ++r) {
-        acc += to_f(gps[r * ldg + c]);
-        if (per_ray && ++pos == p.S) {
-          p.db_rows[ray * N + c] = acc;
-          acc = 0.0f;
-          pos = 0;
-          ++ray;
+    // gp = where(y > 0, g, 0): to shared memory (rows past nvalid zero) and
+    // device memory
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int v = tid + j * NTHREADS, r = v / nv, c = v - r * nv;
+      if (r < TM) {
+        uint4 out = make_uint4(0u, 0u, 0u, 0u);
+        if (r < nvalid) {
+          const bf16* ye = reinterpret_cast<const bf16*>(&yv[j]);
+          const bf16* ge = reinterpret_cast<const bf16*>(&gv[j]);
+          bf16* oe = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            oe[e] = to_f(ye[e]) > 0.0f ? ge[e] : __float2bfloat16_rn(0.0f);
+          __stcs(reinterpret_cast<uint4*>(p.gp + (size_t)(row0 + r) * N + c * 8), out);
         }
+        *reinterpret_cast<uint4*>(gpS + (c >> 3) * (64 * 128) + hopper::swz(r, c & 7)) = out;
       }
-      dbacc[c] = acc;
     }
+    hopper::fence_async_smem();
+    __syncthreads();
+    // the next tile's loads fly while this tile's product runs
+    if (row0 + TM < r_end) fetch(row0 + TM);
 
-    dx_tile(p, gps, row0, nvalid, stage);
-    dw_tile(p, xs, gps, nvalid, slab, first);
-    first = false;
+    const bool active = wg * 128 < K;  // warpgroup-uniform
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      hopper::wgmma_fence();
+      for (int s = 0; s < ncb * 4; ++s) {
+        const uint32_t off = (s & 3) * 32;
+        hopper::wgmma_m64n128k16_nn(
+            acc, hopper::desc(gS + (s >> 2) * (64 * 128) + off, 16, 1024),
+            hopper::desc(wS + (s >> 2) * (KR * 128) + wg * 128 * 128 + off, 16, 1024));
+      }
+      hopper::wgmma_commit();
+    }
+    db_walk(p, row0, nvalid, dbacc, [&](int r, int c) {
+      const int cc = c & 63;
+      return to_f(*reinterpret_cast<const bf16*>(gpS + (c >> 6) * (64 * 128) +
+                                                 hopper::swz(r, cc >> 3) + (cc & 7) * 2));
+    });
+    if (active) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<64>(acc);
+      // dx rounded to bf16 into the dx tile, two columns a store
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wl * 16 + (lane >> 2) + 8 * h;
+          const int col = wg * 128 + 8 * j + 2 * (lane & 3);
+          if (col < K)
+            *reinterpret_cast<__nv_bfloat162*>(dxS + r * ldd + col) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+    }
+    __syncthreads();
+    // the tile's dx rows, 16 bytes a store
+    for (int v = tid; v < nvalid * (K / 8); v += NTHREADS) {
+      const int r = v / (K / 8), c = v - r * (K / 8);
+      __stcs(reinterpret_cast<uint4*>(p.dx + (size_t)(row0 + r) * K + c * 8),
+             *reinterpret_cast<const uint4*>(dxS + r * ldd + c * 8));
+    }
     __syncthreads();
   }
   if (!per_ray)
-    for (int c = threadIdx.x; c < N; c += NTHREADS) slab[(size_t)K * N + c] = dbacc[c];
+    for (int c = tid; c < N; c += NTHREADS) p.db_part[(size_t)blockIdx.x * N + c] = dbacc[c];
 }
 
-// out[i] = sum over the slabs in block order
-__global__ void layer_bwd_reduce(const float* slabs, int nslab, long long stride, float* out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= stride) return;
-  float acc = 0.0f;
-  for (int b = 0; b < nslab; ++b) acc += slabs[(size_t)b * stride + i];
-  out[i] = acc;
+__global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_f32(const Args<float> p) {
+  constexpr int TM = 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int K = p.K, N = p.N, ldg = N + 4;
+  float* const gps = reinterpret_cast<float*>(smem_raw);
+  float* const dbacc = gps + TM * ldg;
+  const bool per_ray = p.db_rows != nullptr;
+  long long r_begin, r_end;
+  block_rows(p.M, p.S, per_ray, TM, &r_begin, &r_end);
+  for (int c = threadIdx.x; c < N; c += NTHREADS) dbacc[c] = 0.0f;
+  for (long long row0 = r_begin; row0 < r_end; row0 += TM) {
+    const int nvalid = (int)(r_end - row0 < TM ? r_end - row0 : TM);
+    for (int i = threadIdx.x; i < TM * N; i += NTHREADS) {
+      const int r = i / N, c = i - r * N;
+      float v = 0.0f;
+      if (r < nvalid) {
+        const size_t off = (size_t)(row0 + r) * N + c;
+        v = p.y[off] > 0.0f ? p.g[off] : 0.0f;
+        p.gp[off] = v;
+      }
+      gps[r * ldg + c] = v;
+    }
+    __syncthreads();
+    db_walk(p, row0, nvalid, dbacc, [&](int r, int c) { return gps[r * ldg + c]; });
+    // dx = gp w^T: thread k owns column k of the tile's rows
+    for (int k = threadIdx.x; k < K; k += NTHREADS) {
+      float acc[TM];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
+      const float* wk = p.w + (size_t)k * N;
+      for (int n = 0; n < N; ++n) {
+        const float wv = __ldg(wk + n);
+#pragma unroll
+        for (int r = 0; r < TM; ++r) acc[r] = fmaf(gps[r * ldg + n], wv, acc[r]);
+      }
+      for (int r = 0; r < nvalid; ++r) p.dx[(row0 + r) * K + k] = acc[r];
+    }
+    __syncthreads();
+  }
+  if (!per_ray)
+    for (int c = threadIdx.x; c < N; c += NTHREADS)
+      p.db_part[(size_t)blockIdx.x * N + c] = dbacc[c];
 }
+
+typedef void (*KernelBf16)(const Args<bf16>);
+typedef void (*KernelF32)(const Args<float>);
+KernelBf16 kernel_of(const Args<bf16>&) { return layer_bwd_rows_bf16; }
+KernelF32 kernel_of(const Args<float>&) { return layer_bwd_rows_f32; }
 
 template <typename T>
-int set_smem(int K, int N) {
-  return static_cast<int>(cudaFuncSetAttribute(layer_bwd_kernel<T>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem_bytes(sizeof(T) == 2, K, N)));
-}
-
-template <typename T>
-int grid_of(int per_ray, long long M, int S, int K, int N, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+int launch(const void* const* ptr, const long long* dims, void* stream) {
+  Args<T> p;
+  p.w = static_cast<const T*>(ptr[0]);
+  p.y = static_cast<const T*>(ptr[1]);
+  p.g = static_cast<const T*>(ptr[2]);
+  p.gp = static_cast<T*>(const_cast<void*>(ptr[3]));
+  p.dx = static_cast<T*>(const_cast<void*>(ptr[4]));
+  p.db_rows = static_cast<float*>(const_cast<void*>(ptr[5]));
+  p.db_part = static_cast<float*>(const_cast<void*>(ptr[6]));
+  p.M = dims[0];
+  p.S = (int)dims[1];
+  p.K = (int)dims[2];
+  p.N = (int)dims[3];
+  const int G = (int)dims[4], smem = (int)dims[5], tm = (int)dims[6];
+  const bool bf = sizeof(T) == 2;
+  // the plan (plan.py::layer_bwd_plan) must match this file's layout
+  if (p.M <= 0 || p.S <= 0 || G <= 0 || p.K % 16 || p.N % 16 || (bf && (p.K > KR || p.N > 256)) ||
+      smem != rows_smem_bytes(bf, p.K, p.N) || tm != tile_rows<T>() ||
+      (p.db_rows != nullptr && p.M % p.S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = kernel_of(p);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int se = set_smem<T>(K, N);
-  if (se != 0) return se;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layer_bwd_kernel<T>, NTHREADS,
-                                                    smem_bytes(sizeof(T) == 2, K, N));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long tm = tile_rows<T>();
-  const long long units = per_ray ? M / S : (M + tm - 1) / tm;
-  const long long g = (long long)sms * per_sm;
-  *grid = (int)(g < units ? g : units);
-  return 0;
+  kernel<<<G, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory per block for operand type bf16 (bf = 1) or f32 (bf = 0).
-int layer_bwd_smem_bytes(int bf, int K, int N) { return (int)smem_bytes(bf, K, N); }
-
-// Blocks of the persistent grid (one slab each) for M rows on the current
-// device; returns a CUDA error code.
-int layer_bwd_grid(int bf, int per_ray, int M, int S, int K, int N, int* grid) {
-  if (M <= 0 || S <= 0 || K <= 0 || N <= 0 || K % 16 || N % 16 || (per_ray && M % S))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return bf ? grid_of<bf16>(per_ray, M, S, K, N, grid)
-            : grid_of<float>(per_ray, M, S, K, N, grid);
-}
-
 const char* layer_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K4 on `stream`: the kernel, then the slab reduction into `flat` (dw, and
-// db after it for a bias).  `db_rows` null selects a bias [N]; otherwise
-// the per-ray sums go there.  Returns cudaGetLastError().
-int layer_bwd(const void* x, const void* w, const void* y, const void* g, void* dx, void* slabs,
-              void* flat, void* db_rows, int bf, int M, int S, int K, int N, int G,
-              void* stream) {
-  if (M <= 0 || G <= 0 || S <= 0 || K % 16 || N % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args p;
-  p.x = x;
-  p.w = w;
-  p.y = y;
-  p.g = g;
-  p.dx = dx;
-  p.slabs = static_cast<float*>(slabs);
-  p.db_rows = static_cast<float*>(db_rows);
-  p.M = M;
-  p.S = db_rows != nullptr ? S : 1;
-  p.K = K;
-  p.N = N;
-  p.G = G;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(bf, K, N);
-  int se = bf ? set_smem<bf16>(K, N) : set_smem<float>(K, N);
-  if (se != 0) return se;
-  if (bf)
-    layer_bwd_kernel<bf16><<<G, NTHREADS, smem, st>>>(p);
-  else
-    layer_bwd_kernel<float><<<G, NTHREADS, smem, st>>>(p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long stride = (long long)K * N + (db_rows != nullptr ? 0 : N);
-  layer_bwd_reduce<<<(unsigned)((stride + 255) / 256), 256, 0, st>>>(p.slabs, G, stride,
-                                                                     static_cast<float*>(flat));
-  return static_cast<int>(cudaGetLastError());
+// Step 1 of K4 on `stream`: gp, dx and db.  ptr: w y g gp dx db_rows
+// db_part (db_rows null for a bias, db_part null for per-ray rows); dims:
+// M S K N G smem tile_rows.  Returns cudaGetLastError().
+int layer_bwd_rows(const void* const* ptr, const long long* dims, int f32, void* stream) {
+  return f32 ? launch<float>(ptr, dims, stream) : launch<bf16>(ptr, dims, stream);
+}
+
+// Step 2: dw = x^T gp (xtg.cuh), with its reduction.
+int layer_bwd_xtg(const long long* plan, int n, int f32, void* stream) {
+  return xtg::run(plan, n, f32, stream);
+}
+
+// A bias's db partials summed in block order.
+int layer_bwd_sum(const long long* rows, int n, void* stream) {
+  return xtg::sum_parts(rows, n, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@
 // launched by _trunk_bwd_pallas: K2 is its recompute form (stored=False,
 // the VJP of make_fused_codenerf(pallas_backward=True)), K3 its
 // stored-activation form (stored=True, the VJP of make_hybrid_codenerf).
-// One template, trunk_bwd_kernel<STORED>, holds both.
+// One template, trunk_bwd_rows_kernel<T, RECOMPUTE>, holds both row passes;
+// both then run the same weight-gradient products (xtg.cuh).
 //
 // For every sample row it takes g = d loss / d raw [R*S, 4] f32 back through
 // the trunk K1 computes (trunk_fwd.cu) and emits
@@ -13,20 +14,22 @@
 //   gzs1p gfeatp gsigp gdirp gzt1p [R, .]  f32 sums over each ray's S rows
 //   dw1s dw1c dw1x dw2 dwof dwos dwd dwd2 dwr, db1, dbd2   f32
 //
-// with the TPU kernel's cast points:
-//   * K2 recomputes h1, h2, feat, v1, v2 with K1's own code
-//     (trunk_common.cuh), so the relu masks, float(act) > 0 on the bf16
-//     activation, are K1's bit for bit.  K3 reads them from the forward.
-//     Both rederive the encode: sincosf(__fmul_rn(x_c, f_k)), no fast math.
-//   * every cotangent product g @ w^T takes bf16 in, sums in f32 and rounds
-//     to bf16; g_rgb and g_sig stay f32 for the per-ray sums and the
-//     g_pts chain and are rounded to bf16 where they enter a product;
-//   * weight grads x^T @ g take bf16 x and g and sum in f32; db1 and dbd2
-//     are f32 column sums of g_h1 and g_v2;
+// with the TPU kernel's cast points for the compute type cd (bf16, or f32
+// where every rounding to cd is exact and the products run on the CUDA
+// cores, no TF32):
+//   * K2's relu masks, float(act) > 0, come from activations recomputed by
+//     K1's own code (trunk_common.cuh), bit for bit; K3 reads them from the
+//     forward.  Both rederive the encode: sincosf(__fmul_rn(x_c, f_k)), no
+//     fast math.
+//   * every cotangent product g @ w^T takes cd in, sums in f32 and rounds
+//     to cd; g_rgb and g_sig stay f32 for the per-ray sums and the g_pts
+//     chain and are rounded to cd where they enter a product;
+//   * weight grads x^T @ g take cd x and g and sum in f32; db1 and dbd2 are
+//     f32 column sums of g_h1 and g_v2;
 //   * g_scaled = g_sn cos - g_cs sin in f32 with the unrounded sin / cos,
 //     and g_pts[c] = sum_k f_k g_scaled[3k + c] in f32 multiplies and adds
 //     in band order (no tensor cores: the bands reach 2^(F-1)), then
-//     + bf16(g_h1 @ w1x^T) with the input term.
+//     + cd(g_h1 @ w1x^T) with the input term.
 //
 // Bound on the H100: at the flagship (h = s = 256, F = 10) a sample row
 // costs ~1.12 MFLOP of bf16 products in the backward (dx and dW products)
@@ -35,240 +38,176 @@
 // so they are bound by operations: ~5.3 ms (K2) and ~3.6 ms (K3) per
 // flagship train step (3.15 M rows) at 989 TFLOP/s.
 //
-// Design.  The TPU accumulated the weight grads in output blocks that its
-// sequential grid revisits; CUDA blocks run concurrently and in no order.
-// So the grid is persistent (one block per SM: the five activations of a
-// 64-row tile take 165 KB of shared memory at the flagship), and each block
-// walks the rows of a contiguous range of whole rays in 64-row tiles:
-//   * weight grads accumulate into the block's own f32 slab in global
-//     memory (279,808 floats at the flagship): each warp owns fixed 32x32
-//     blocks of every dW and adds each tile's product to them with wmma
-//     (the accumulator fragments are loaded from and stored to the slab),
-//     so every element is summed in tile order by one warp;
-//   * per-ray sums accumulate into the ray's output row, one thread per
-//     column walking the tile's rows in order; the block owns the ray, so
-//     no other block touches the row;
-//   * a second kernel, trunk_bwd_reduce, sums the slabs in block order.
-// No atomics: two calls on the same card give the same bits.  Activations
-// and cotangents stay in shared memory as bf16 (a cotangent overwrites the
-// activation whose mask it consumed), products use wmma bf16 16x16x16 with
-// f32 accumulators, weights are read from global memory (L2).  The slab
-// read-modify-write moves ~2.2 MB per tile, which at this size costs about
-// as much as the products; wgmma, TMA and dW accumulation that stays on
-// chip longer are later work.
+// What held the first design back.  The TPU summed the weight grads in
+// output blocks its sequential grid revisits.  The first port kept that sum
+// per block: each of ~132 persistent blocks (one per SM: five 64-row
+// activations in 165 KB of shared memory) added every tile's dW products
+// (wmma 16x16x16, weights from L2) into its own f32 slab of 279,808
+// floats, loading and storing the whole slab per tile: ~2.24 MB per tile,
+// ~110 GB per flagship step.  The 148 MB of slabs do not fit the 50 MB L2,
+// so that traffic went to HBM (~33 ms alone); K2 reached 45 TFLOP/s, 4.5% of
+// the bf16 peak, 117 ms per step.
+//
+// This design takes the weight grads out of the row pass.
+//   1. trunk_bwd_rows_kernel: a persistent grid of whole-ray ranges, two
+//      blocks per SM (two tile buffers, 91 KB).  Per 64-row tile (32 in
+//      f32) K2 first runs K1's chain again (fwd_front / fwd_back), storing
+//      h1 h2 feat v1 for the products and leaving v2 and v1 in the two
+//      buffers; K3 loads v2 and v1.  Then the cotangent chain, each
+//      cotangent overwriting the activation whose mask it consumed (h2 and
+//      h1 are read back when their turn comes), and the encode chain to
+//      g_pts.  The per-ray sums go to the ray's output row (the block owns
+//      the ray), in row order; dwos, dwr and dbd2 (5h floats) to a
+//      per-block slab.  The operands of the weight grads are written in
+//      cd, 16 bytes a store: the encode [sin | cos | x 1 0 ...] (the ones
+//      give db1) and g_h1 g_h2 g_feat g_v1 g_v2, ~2.7 KB a row.
+//   2. xtg.cuh: the five dW products (enc^T g_h1 -> dw1s dw1c dw1x db1,
+//      h1^T g_h2, h2^T g_feat, feat^T g_v1, v1^T g_v2) as tall split-K
+//      wgmma GEMMs over all rows, each block's f32 sums in registers over
+//      its row range, partials summed in split order; the per-block slabs
+//      summed in block order.
+// Bytes per flagship step: ~5 KB a row written and read again, ~16 GB, ~5
+// ms at 3.35 TB/s, against ~110 GB of slab traffic before; products: the
+// same FLOPs.  No atomics: two calls on the same card give the same bits.
+// The row pass's products are wmma with weights from L2, as in K1; each
+// accumulator's epilogue runs straight from its registers.
 
 #include "trunk_common.cuh"
+#include "xtg.cuh"
 
 using namespace trunk;
 
 namespace {
 
-// Offsets (floats) of each weight grad in a block's slab.
-struct Layout {
-  long long dw1s, dw1c, dw1x, dw2, dwof, dwd, dwd2, dwos, dwr, db1, dbd2, total;
-};
+// the narrow grads in a block's slab, in floats: dwos [H], dwr [H, 3],
+// dbd2 [H]
+constexpr int SMALL_DWOS = 0, SMALL_DWR = 1, SMALL_DBD2 = 4, SMALL_WIDTH = 5;
 
-Layout layout_of(int H, int SC, int F) {
-  Layout L;
-  const long long KP = kp_of(F);
-  long long o = 0;
-  L.dw1s = o; o += KP * H;
-  L.dw1c = o; o += KP * H;
-  L.dw1x = o; o += (long long)KX * H;
-  L.dw2 = o; o += (long long)H * H;
-  L.dwof = o; o += (long long)H * SC;
-  L.dwd = o; o += (long long)SC * H;
-  L.dwd2 = o; o += (long long)H * H;
-  L.dwos = o; o += H;
-  L.dwr = o; o += 3LL * H;
-  L.db1 = o; o += H;
-  L.dbd2 = o; o += H;
-  L.total = (o + 63) / 64 * 64;
-  return L;
-}
-
-struct BwdArgs {
-  TrunkW w;
+template <typename T>
+struct RowArgs {
+  TrunkW<T> w;
   const float* pts;    // [R*S, 3]
   const float* g;      // [R*S, 4]
-  const bf16* h1;      // [R*S, H]   stored activations (K3 only)
-  const bf16* h2;      // [R*S, H]
-  const bf16* feat;    // [R*S, SC]
-  const bf16* v1;      // [R*S, H]
-  const bf16* v2;      // [R*S, H]
+  Acts<T> act;         // [R*S, .] activations: K3 reads the forward's; K2's
+                       // forward writes h1 h2 feat v1 here, read back later
+  T* enc;              // [R*S, EW] sin (KP) | cos (KP) | x (3) 1 0 ... (16)
+  Acts<T> cot;         // [R*S, .] g_h1 g_h2 g_feat g_v1 g_v2 (written)
   float* g_pts;        // [R*S, 3]
   float* gzs1p;        // [R, H]
   float* gfeatp;       // [R, SC]
   float* gsigp;        // [R, 1]
   float* gdirp;        // [R, H]
   float* gzt1p;        // [R, 3]
-  float* slabs;        // [G, L.total]
-  Layout L;
-  int R;
+  float* small;        // [G, 5H]
+  int R, EW;
 };
 
-// out[TM, N] = A[TM, K] @ W^T with W [N, K] row-major in global memory (a
-// forward weight in [in, out] layout, read as a column-major W^T).
-// K % 16 == 0, N % WNB == 0; warp w owns columns [w*WNB, w*WNB + WNB), ...
-template <int WNB, class Epi>
-__device__ __forceinline__ void tile_gemm_t(const bf16* A, int lda, const bf16* W, int K,
-                                            int N, float* stage, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 256;
-  for (int n0 = warp * WNB; n0 < N; n0 += NWARPS * WNB) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16][WNB / 16];
-#pragma unroll
-    for (int i = 0; i < TM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < WNB / 16; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[WNB / 16];
-#pragma unroll
-      for (int j = 0; j < WNB / 16; ++j)
-        wmma::load_matrix_sync(b[j], W + (size_t)(n0 + j * 16) * K + k0, K);
-#pragma unroll
-      for (int i = 0; i < TM / 16; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + i * 16 * lda + k0, lda);
-#pragma unroll
-        for (int j = 0; j < WNB / 16; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TM / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < WNB / 16; ++j) {
-        wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32)
-          epi(i * 16 + (e >> 4), n0 + j * 16 + (e & 15), st[e]);
-        __syncwarp();
-      }
-  }
-}
-
-// slab[M, N] += X^T @ G over the tile's TM rows: X [TM, M] and G [TM, N]
-// bf16 in shared memory (row strides ldx, ldg), slab f32 row-major in
-// global memory; M % 16 == 0, N % 16 == 0.  Warp w owns the 32x32 blocks
-// w, w + NWARPS, ... in every tile, so each element's sum runs in tile order.
-__device__ __forceinline__ void dw_gemm(const bf16* X, int ldx, int M, const bf16* G, int ldg,
-                                        int N, float* slab) {
-  const int warp = threadIdx.x >> 5;
-  const int mb = (M + 31) / 32, nb = (N + 31) / 32;
-  for (int blk = warp; blk < mb * nb; blk += NWARPS) {
-    const int m0 = (blk / nb) * 32, n0 = (blk % nb) * 32;
-    const int mi = m0 + 16 < M ? 2 : 1, nj = n0 + 16 < N ? 2 : 1;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (i < mi && j < nj)
-          wmma::load_matrix_sync(acc[i][j], slab + (size_t)(m0 + 16 * i) * N + n0 + 16 * j, N,
-                                 wmma::mem_row_major);
-    for (int k0 = 0; k0 < TM; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (i < mi) wmma::load_matrix_sync(a[i], X + k0 * ldx + m0 + 16 * i, ldx);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (j < nj) wmma::load_matrix_sync(b[j], G + k0 * ldg + n0 + 16 * j, ldg);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (i < mi && j < nj) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (i < mi && j < nj)
-          wmma::store_matrix_sync(slab + (size_t)(m0 + 16 * i) * N + n0 + 16 * j, acc[i][j], N,
-                                  wmma::mem_row_major);
-  }
-}
-
-// slab[c] += sum over the tile's valid rows of X[r, c], one thread a column
-__device__ __forceinline__ void col_sum(const bf16* X, int ldx, int N, int nvalid, float* slab) {
-  for (int c = threadIdx.x; c < N; c += NTHREADS) {
-    float acc = 0.0f;
-    for (int r = 0; r < nvalid; ++r) acc += f32(X[r * ldx + c]);
-    slab[c] += acc;
-  }
-}
-
-// out[ray, c] += the tile's rows of that ray, one thread a column walking
-// the rows in order; out is [R, N] in global memory.
-template <class Get>
-__device__ __forceinline__ void ray_sums(const int* ray, int nvalid, int N, Get get, float* out) {
-  for (int c = threadIdx.x; c < N; c += NTHREADS) {
-    int cur = ray[0];
-    float run = 0.0f;
-    for (int r = 0; r < nvalid; ++r) {
-      if (ray[r] != cur) {
-        out[(size_t)cur * N + c] += run;
-        run = 0.0f;
-        cur = ray[r];
-      }
-      run += get(r, c);
-    }
-    if (nvalid > 0) out[(size_t)cur * N + c] += run;
-  }
-}
-
-// dst[TM, N] (row stride ld) = rows row0.. of src [*, N]; rows >= nvalid zero
-__device__ __forceinline__ void load_act(const bf16* src, int N, bf16* dst, int ld,
-                                         long long row0, int nvalid) {
-  const int nv = N / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < TM * nv; i += NTHREADS) {
-    const int r = i / nv, v = i - r * nv;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) x = reinterpret_cast<const uint4*>(src + (row0 + r) * N)[v];
-    reinterpret_cast<uint4*>(dst + r * ld)[v] = x;
-  }
-}
-
-int smem_bytes(int H, int SC, int F) {
+template <typename T>
+__host__ __device__ inline int rows_smem_bytes(int H, int SC, int F) {
+  constexpr int TM = tile_rows<T>();
   const int ld = ld_of(H, SC), ldk = kp_of(F) + PAD;
-  return 5 * TM * ld * 2 + 2 * TM * ldk * 2 + TM * LDX * 2 + NWARPS * 256 * 4 + TM * 3 * 4 +
-         TM * 4 * 4 + TM * 4;
+  return (2 * TM * ld + 2 * TM * ldk + TM * LDX) * (int)sizeof(T) + TM * 3 * 4 + TM * 4 * 4 +
+         TM * 4;
 }
 
-template <bool STORED>
-__global__ void __launch_bounds__(NTHREADS, 1) trunk_bwd_kernel(const BwdArgs p) {
+__device__ __forceinline__ void load2(const bf16* p, float& a, float& b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+
+// slab[c] += sum over the tile's valid rows of X[r, c] in row order, two
+// columns a thread
+template <typename T>
+__device__ __forceinline__ void col_sum(const T* X, int ldx, int N, int nvalid, float* slab) {
+  for (int c = 2 * threadIdx.x; c < N; c += 2 * NTHREADS) {
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int r = 0; r < nvalid; ++r) {
+      float a, b;
+      load2(X + r * ldx + c, a, b);
+      s0 += a;
+      s1 += b;
+    }
+    slab[c] += s0;
+    slab[c + 1] += s1;
+  }
+}
+
+// out[ray, c] += the tile's rows of that ray of X (row stride ldx), summed
+// in row order, two columns a thread; out is [R, N] in global memory and the
+// tile's rows start at row0 (rays of S rows)
+template <typename T>
+__device__ __forceinline__ void ray_sums(const T* X, int ldx, int N, long long row0, int nvalid,
+                                         int S, float* out) {
+  for (int c = 2 * threadIdx.x; c < N; c += 2 * NTHREADS) {
+    int r = 0;
+    while (r < nvalid) {
+      const long long row = row0 + r;
+      const int end = min(nvalid, r + S - (int)(row % S));
+      float s0 = 0.0f, s1 = 0.0f;
+      for (; r < end; ++r) {
+        float a, b;
+        load2(X + r * ldx + c, a, b);
+        s0 += a;
+        s1 += b;
+      }
+      float* o = out + (size_t)(row / S) * N + c;
+      o[0] += s0;
+      o[1] += s1;
+    }
+  }
+}
+
+// the same for the cotangent's columns j of g [TM, 4] (f32), one thread a
+// column
+__device__ __forceinline__ void ray_sums_g(const float* g, int j0, int n, long long row0,
+                                           int nvalid, int S, float* out) {
+  for (int c = threadIdx.x; c < n; c += NTHREADS) {
+    int r = 0;
+    while (r < nvalid) {
+      const long long row = row0 + r;
+      const int end = min(nvalid, r + S - (int)(row % S));
+      float s = 0.0f;
+      for (; r < end; ++r) s += g[r * 4 + j0 + c];
+      out[(size_t)(row / S) * n + c] += s;
+    }
+  }
+}
+
+template <typename T, bool RECOMPUTE>
+__global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowArgs<T> p) {
+  constexpr int TM = tile_rows<T>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const TrunkW& w = p.w;
+  const TrunkW<T>& w = p.w;
   const int H = w.H, SC = w.SC, S = w.S, ld = w.ld, ldk = w.ldk, KP = w.KP, F = w.F;
-  bf16* const h1 = reinterpret_cast<bf16*>(smem);
-  bf16* const h2 = h1 + TM * ld;
-  bf16* const feat = h2 + TM * ld;
-  bf16* const v1 = feat + TM * ld;
-  bf16* const v2 = v1 + TM * ld;
-  bf16* const encS = v2 + TM * ld;
-  bf16* const encC = encS + TM * ldk;
-  bf16* const encX = encC + TM * ldk;
-  float* const stage = reinterpret_cast<float*>(encX + TM * LDX);
-  float* const pts = stage + NWARPS * 256;
+  T* const X = reinterpret_cast<T*>(smem);
+  T* const Y = X + TM * ld;
+  T* const encS = Y + TM * ld;
+  T* const encC = encS + TM * ldk;
+  T* const encX = encC + TM * ldk;
+  float* const pts = reinterpret_cast<float*>(encX + TM * LDX);
   float* const g = pts + TM * 3;
   int* const ray = reinterpret_cast<int*>(g + TM * 4);
 
   const int tid = threadIdx.x;
-  const Layout L = p.L;
-  float* const slab = p.slabs + (size_t)blockIdx.x * L.total;
-  const bf16* const wr = w.wr;
-  const bf16* const wos = w.wos;
+  float* const small = p.small + (size_t)blockIdx.x * SMALL_WIDTH * H;
+  const T* const wr = w.wr;
+  const T* const wos = w.wos;
   const float* const bands = w.bands;
   const bool has_x = w.w1x != nullptr;
+  const int EW = p.EW;
 
   // this block's rays [ray0, ray1) and their rows [rowA, rowB)
   const int ray0 = (int)((long long)blockIdx.x * p.R / gridDim.x);
   const int ray1 = (int)((long long)(blockIdx.x + 1) * p.R / gridDim.x);
   const long long rowA = (long long)ray0 * S, rowB = (long long)ray1 * S;
 
-  for (long long i = tid; i < L.total; i += NTHREADS) slab[i] = 0.0f;
+  for (int i = tid; i < SMALL_WIDTH * H; i += NTHREADS) small[i] = 0.0f;
   for (long long i = (long long)ray0 * H + tid; i < (long long)ray1 * H; i += NTHREADS) {
     p.gzs1p[i] = 0.0f;
     p.gdirp[i] = 0.0f;
@@ -280,6 +219,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) trunk_bwd_kernel(const BwdArgs p)
   for (int i = ray0 + tid; i < ray1; i += NTHREADS) p.gsigp[i] = 0.0f;
   __syncthreads();
 
+  auto live = [](T a) { return f32(a) > 0.0f; };
   for (long long row0 = rowA; row0 < rowB; row0 += TM) {
     const int nvalid = (int)(rowB - row0 < TM ? rowB - row0 : TM);
     // rows past the block's last ray carry g = 0 and write nothing
@@ -287,101 +227,128 @@ __global__ void __launch_bounds__(NTHREADS, 1) trunk_bwd_kernel(const BwdArgs p)
       pts[i] = i / 3 < nvalid ? p.pts[row0 * 3 + i] : 0.0f;
     for (int i = tid; i < TM * 4; i += NTHREADS)
       g[i] = i / 4 < nvalid ? p.g[row0 * 4 + i] : 0.0f;
-    for (int r = tid; r < TM; r += NTHREADS)
-      ray[r] = (int)((row0 + (r < nvalid ? r : nvalid - 1)) / S);
-    if (STORED) {
-      load_act(p.h1, H, h1, ld, row0, nvalid);
-      load_act(p.h2, H, h2, ld, row0, nvalid);
-      load_act(p.feat, SC, feat, ld, row0, nvalid);
-      load_act(p.v1, H, v1, ld, row0, nvalid);
-      load_act(p.v2, H, v2, ld, row0, nvalid);
+    if (RECOMPUTE) {
+      // K2: K1's chain again, h1 h2 feat v1 stored for the dW products; it
+      // leaves v2 in X and v1 in Y
+      for (int r = tid; r < TM; r += NTHREADS)
+        ray[r] = (int)((row0 + (r < nvalid ? r : nvalid - 1)) / S);
+      __syncthreads();
+      fwd_front<T>(w, pts, ray, X, Y, encS, encC, encX, &p.act, row0, nvalid);
+      fwd_back<T>(w, ray, X, Y, &p.act, row0, nvalid);
+    } else {
+      load_rows(p.act.v2, H, X, ld, row0, nvalid);
+      load_rows(p.act.v1, H, Y, ld, row0, nvalid);
+      __syncthreads();
+      encode_tile(w, pts, encS, encC, encX);
+    }
+    // the encode rows for dw1s, dw1c, dw1x and db1: [sin | cos | x 1 0 ...],
+    // 16 bytes a store
+    {
+      constexpr int V = 16 / (int)sizeof(T);
+      const int nv = EW / V, ks = KP / V;
+      for (int i = tid; i < nvalid * nv; i += NTHREADS) {
+        const int r = i / nv, q = i - r * nv;
+        uint4 v;
+        if (q < ks) {
+          v = *reinterpret_cast<const uint4*>(encS + r * ldk + q * V);
+        } else if (q < 2 * ks) {
+          v = *reinterpret_cast<const uint4*>(encC + r * ldk + (q - ks) * V);
+        } else {
+          T* e = reinterpret_cast<T*>(&v);
+          const int j0 = (q - 2 * ks) * V;
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            e[j] = j0 + j < 3 && has_x ? encX[r * LDX + j0 + j] : cvt<T>(j0 + j == 3 ? 1.0f : 0.0f);
+        }
+        reinterpret_cast<uint4*>(p.enc + (row0 + r) * EW)[q] = v;
+      }
+    }
+
+    // ---- heads: per-ray sums of g_rgb / g_sig, dwr = v2^T g_rgb
+    ray_sums_g(g, 0, 3, row0, nvalid, S, p.gzt1p);
+    ray_sums_g(g, 3, 1, row0, nvalid, S, p.gsigp);
+    for (int k = tid; k < H; k += NTHREADS) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      for (int r = 0; r < nvalid; ++r) {
+        const float x = f32(X[r * ld + k]);
+        const float4 gr = *reinterpret_cast<const float4*>(g + r * 4);
+        a0 = fmaf(x, rnd<T>(gr.x), a0);
+        a1 = fmaf(x, rnd<T>(gr.y), a1);
+        a2 = fmaf(x, rnd<T>(gr.z), a2);
+      }
+      float* d = small + SMALL_DWR * H + k * 3;
+      d[0] += a0;
+      d[1] += a1;
+      d[2] += a2;
     }
     __syncthreads();
 
-    encode_tile(w, pts, encS, encC, encX);
-    if (!STORED) {
-      fwd_h1(w, encS, encC, encX, h1, stage);
-      fwd_h2(w, h1, h2, ray, stage);
-      fwd_feat(w, h2, feat, ray, stage);
-      fwd_v1(w, feat, v1, ray, stage);
-      fwd_v2(w, v1, v2, stage);
-    }
-
-    // ---- heads: per-ray sums of g_rgb / g_sig, dwr = v2^T g_rgb, dwos = h2^T g_sig
-    ray_sums(ray, nvalid, 3, [=](int r, int c) { return g[r * 4 + c]; }, p.gzt1p);
-    ray_sums(ray, nvalid, 1, [=](int r, int c) { return g[r * 4 + 3]; }, p.gsigp);
-    for (int i = tid; i < 4 * H; i += NTHREADS) {
-      const int k = i >> 2, j = i & 3;
-      const bf16* X = j < 3 ? v2 : h2;
-      float acc = 0.0f;
-      for (int r = 0; r < nvalid; ++r) acc = fmaf(f32(X[r * ld + k]), rb(g[r * 4 + j]), acc);
-      if (j < 3)
-        slab[L.dwr + k * 3 + j] += acc;
-      else
-        slab[L.dwos + k] += acc;
-    }
-    __syncthreads();
-
-    // g_v2 = live(v2) * bf16(g_rgb @ wr^T), in place of v2
+    // g_v2 = live(v2) * cd(g_rgb @ wr^T), in place of v2
     for (int i = tid; i < TM * H; i += NTHREADS) {
       const int r = i / H, c = i - r * H;
       float acc = 0.0f;
-      for (int j = 0; j < 3; ++j) acc = fmaf(rb(g[r * 4 + j]), f32(wr[c * 3 + j]), acc);
-      bf16* d = v2 + r * ld + c;
-      *d = f32(*d) > 0.0f ? tob(acc) : tob(0.0f);
+      for (int j = 0; j < 3; ++j) acc = fmaf(rnd<T>(g[r * 4 + j]), f32(wr[c * 3 + j]), acc);
+      T* d = X + r * ld + c;
+      *d = live(*d) ? cvt<T>(acc) : cvt<T>(0.0f);
     }
     __syncthreads();
-    col_sum(v2, ld, H, nvalid, slab + L.dbd2);
-    dw_gemm(v1, ld, H, v2, ld, H, slab + L.dwd2);
-    __syncthreads();
+    col_sum(X, ld, H, nvalid, small + SMALL_DBD2 * H);
+    store_rows(X, ld, p.cot.v2, H, row0, nvalid);
 
-    // g_v1 = live(v1) * bf16(g_v2 @ wd2^T), in place of v1
-    tile_gemm_t<WN>(v2, ld, w.wd2, H, H, stage, [=](int r, int c, float v) {
-      bf16* d = v1 + r * ld + c;
-      *d = f32(*d) > 0.0f ? tob(v) : tob(0.0f);
+    // g_v1 = live(v1) * cd(g_v2 @ wd2^T), in place of v1
+    tile_gemm_t<WN, 4>(X, ld, w.wd2, H, H, [=](int r, int c, float v) {
+      T* d = Y + r * ld + c;
+      *d = live(*d) ? cvt<T>(v) : cvt<T>(0.0f);
     });
     __syncthreads();
-    ray_sums(ray, nvalid, H, [=](int r, int c) { return f32(v1[r * ld + c]); }, p.gdirp);
-    dw_gemm(feat, ld, SC, v1, ld, H, slab + L.dwd);
-    // g_feat = bf16(g_v1 @ wd^T), into v2's buffer (g_v2 is dead)
-    tile_gemm_t<WN>(v1, ld, w.wd, H, SC, stage,
-                    [=](int r, int c, float v) { v2[r * ld + c] = tob(v); });
+    ray_sums(Y, ld, H, row0, nvalid, S, p.gdirp);
+    store_rows(Y, ld, p.cot.v1, H, row0, nvalid);
+    // g_feat = cd(g_v1 @ wd^T), into X (g_v2 is stored)
+    tile_gemm_t<WN, 4>(Y, ld, w.wd, H, SC,
+                    [=](int r, int c, float v) { X[r * ld + c] = cvt<T>(v); });
     __syncthreads();
-    ray_sums(ray, nvalid, SC, [=](int r, int c) { return f32(v2[r * ld + c]); }, p.gfeatp);
-    dw_gemm(h2, ld, H, v2, ld, SC, slab + L.dwof);
+    ray_sums(X, ld, SC, row0, nvalid, S, p.gfeatp);
+    store_rows(X, ld, p.cot.feat, SC, row0, nvalid);
+    load_rows(p.act.h2, H, Y, ld, row0, nvalid);  // g_v1 is stored
     __syncthreads();
 
-    // g_h2 = live(h2) * bf16(bf16(g_feat @ wof^T) + bf16(g_sig * wos)), in place of h2
-    tile_gemm_t<WN>(v2, ld, w.wof, SC, H, stage, [=](int r, int c, float v) {
-      bf16* d = h2 + r * ld + c;
-      const float t = rb(rb(v) + rb(rb(g[r * 4 + 3]) * f32(wos[c])));
-      *d = f32(*d) > 0.0f ? tob(t) : tob(0.0f);
+    // dwos = h2^T g_sig
+    for (int k = tid; k < H; k += NTHREADS) {
+      float acc = 0.0f;
+      for (int r = 0; r < nvalid; ++r) acc = fmaf(f32(Y[r * ld + k]), rnd<T>(g[r * 4 + 3]), acc);
+      small[SMALL_DWOS * H + k] += acc;
+    }
+    __syncthreads();
+    // g_h2 = live(h2) * cd(cd(g_feat @ wof^T) + cd(cd(g_sig) * wos)), in place of h2
+    tile_gemm_t<WN, 4>(X, ld, w.wof, SC, H, [=](int r, int c, float v) {
+      T* d = Y + r * ld + c;
+      const float t = rnd<T>(rnd<T>(v) + rnd<T>(rnd<T>(g[r * 4 + 3]) * f32(wos[c])));
+      *d = live(*d) ? cvt<T>(t) : cvt<T>(0.0f);
     });
     __syncthreads();
-    ray_sums(ray, nvalid, H, [=](int r, int c) { return f32(h2[r * ld + c]); }, p.gzs1p);
-    dw_gemm(h1, ld, H, h2, ld, H, slab + L.dw2);
+    ray_sums(Y, ld, H, row0, nvalid, S, p.gzs1p);
+    store_rows(Y, ld, p.cot.h2, H, row0, nvalid);
+    load_rows(p.act.h1, H, X, ld, row0, nvalid);  // g_feat is stored
     __syncthreads();
 
-    // g_h1 = live(h1) * bf16(g_h2 @ w2^T), in place of h1
-    tile_gemm_t<WN>(h2, ld, w.w2, H, H, stage, [=](int r, int c, float v) {
-      bf16* d = h1 + r * ld + c;
-      *d = f32(*d) > 0.0f ? tob(v) : tob(0.0f);
+    // g_h1 = live(h1) * cd(g_h2 @ w2^T), in place of h1
+    tile_gemm_t<WN, 4>(Y, ld, w.w2, H, H, [=](int r, int c, float v) {
+      T* d = X + r * ld + c;
+      *d = live(*d) ? cvt<T>(v) : cvt<T>(0.0f);
     });
     __syncthreads();
-    col_sum(h1, ld, H, nvalid, slab + L.db1);
-    dw_gemm(encS, ldk, KP, h1, ld, H, slab + L.dw1s);
-    dw_gemm(encC, ldk, KP, h1, ld, H, slab + L.dw1c);
-    if (has_x) dw_gemm(encX, LDX, KX, h1, ld, H, slab + L.dw1x);
-    __syncthreads();
+    store_rows(X, ld, p.cot.h1, H, row0, nvalid);
 
-    // g_sn, g_cs, g_x = bf16(g_h1 @ w1s^T, w1c^T, w1x^T), into the encode blocks
-    tile_gemm_t<16>(h1, ld, w.w1s, H, KP, stage,
-                    [=](int r, int c, float v) { encS[r * ldk + c] = tob(v); });
-    tile_gemm_t<16>(h1, ld, w.w1c, H, KP, stage,
-                    [=](int r, int c, float v) { encC[r * ldk + c] = tob(v); });
-    if (has_x)
-      tile_gemm_t<16>(h1, ld, w.w1x, H, KX, stage,
-                      [=](int r, int c, float v) { encX[r * LDX + c] = tob(v); });
+    // g_sn, g_cs, g_x = cd(g_h1 @ w1s^T, w1c^T, w1x^T), into the encode
+    // blocks: one product against the stacked [w1s; w1c; w1x], 16 columns
+    // by 16 rows a warp task
+    const int n1 = 2 * KP + (has_x ? KX : 0);
+    tile_gemm_t<16, 1>(X, ld, w.w1b, H, n1, [=](int r, int c, float v) {
+      T* d = c < KP       ? encS + r * ldk + c
+             : c < 2 * KP ? encC + r * ldk + c - KP
+                          : encX + r * LDX + c - 2 * KP;
+      *d = cvt<T>(v);
+    });
     __syncthreads();
 
     // g_pts[c] = sum_k f_k (g_sn cos - g_cs sin)[3k + c] (+ g_x[c])
@@ -405,99 +372,81 @@ __global__ void __launch_bounds__(NTHREADS, 1) trunk_bwd_kernel(const BwdArgs p)
   }
 }
 
-// out[i] = sum over the slabs in block order
-__global__ void trunk_bwd_reduce(const float* slabs, int nslab, long long stride, float* out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= stride) return;
-  float acc = 0.0f;
-  for (int b = 0; b < nslab; ++b) acc += slabs[(size_t)b * stride + i];
-  out[i] = acc;
-}
-
-template <bool STORED>
-int set_smem(int H, int SC, int F) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      trunk_bwd_kernel<STORED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(H, SC, F)));
-}
-
-template <bool STORED>
-int grid_of(int R, int H, int SC, int F, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int se = set_smem<STORED>(H, SC, F);
-  if (se != 0) return se;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trunk_bwd_kernel<STORED>, NTHREADS,
-                                                    smem_bytes(H, SC, F));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long g = (long long)sms * per_sm;
-  *grid = (int)(g < R ? g : R);
-  return 0;
-}
-
-// in:  pts zs1p featp sigp dirp zt1p b1 w1x w1s w1c bands w2 wof wos wd wd2
-//      bd2 wr g h1 h2 feat v1 v2   (w1x null without the input term; the
-//      five activations null for K2)
-// out: g_pts gzs1p gfeatp gsigp gdirp gzt1p slabs dflat
-// dims: R S H SC F G
-template <bool STORED>
-int launch(const void* const* in, void* const* out, const int* dims, void* stream) {
-  const int R = dims[0], S = dims[1], H = dims[2], SC = dims[3], F = dims[4], G = dims[5];
-  BwdArgs p;
-  TrunkW& w = p.w;
-  p.pts = static_cast<const float*>(in[0]);
-  w.zs1p = static_cast<const bf16*>(in[1]);
-  w.featp = static_cast<const bf16*>(in[2]);
-  w.sigp = static_cast<const bf16*>(in[3]);
-  w.dirp = static_cast<const bf16*>(in[4]);
-  w.zt1p = static_cast<const bf16*>(in[5]);
-  w.b1 = static_cast<const bf16*>(in[6]);
-  w.w1x = static_cast<const bf16*>(in[7]);
-  w.w1s = static_cast<const bf16*>(in[8]);
-  w.w1c = static_cast<const bf16*>(in[9]);
+template <typename T>
+void fill_weights(TrunkW<T>& w, const void* const* in, const int* dims) {
+  w.zs1p = static_cast<const T*>(in[1]);
+  w.featp = static_cast<const T*>(in[2]);
+  w.sigp = static_cast<const T*>(in[3]);
+  w.dirp = static_cast<const T*>(in[4]);
+  w.zt1p = static_cast<const T*>(in[5]);
+  w.b1 = static_cast<const T*>(in[6]);
+  w.w1x = static_cast<const T*>(in[7]);
+  w.w1s = static_cast<const T*>(in[8]);
+  w.w1c = static_cast<const T*>(in[9]);
   w.bands = static_cast<const float*>(in[10]);
-  w.w2 = static_cast<const bf16*>(in[11]);
-  w.wof = static_cast<const bf16*>(in[12]);
-  w.wos = static_cast<const bf16*>(in[13]);
-  w.wd = static_cast<const bf16*>(in[14]);
-  w.wd2 = static_cast<const bf16*>(in[15]);
-  w.bd2 = static_cast<const bf16*>(in[16]);
-  w.wr = static_cast<const bf16*>(in[17]);
-  p.g = static_cast<const float*>(in[18]);
-  p.h1 = static_cast<const bf16*>(in[19]);
-  p.h2 = static_cast<const bf16*>(in[20]);
-  p.feat = static_cast<const bf16*>(in[21]);
-  p.v1 = static_cast<const bf16*>(in[22]);
-  p.v2 = static_cast<const bf16*>(in[23]);
+  w.w2 = static_cast<const T*>(in[11]);
+  w.wof = static_cast<const T*>(in[12]);
+  w.wos = static_cast<const T*>(in[13]);
+  w.wd = static_cast<const T*>(in[14]);
+  w.wd2 = static_cast<const T*>(in[15]);
+  w.bd2 = static_cast<const T*>(in[16]);
+  w.wr = static_cast<const T*>(in[17]);
+  w.w1xT = static_cast<const T*>(in[18]);
+  w.w1sT = static_cast<const T*>(in[19]);
+  w.w1cT = static_cast<const T*>(in[20]);
+  w.w2T = static_cast<const T*>(in[21]);
+  w.wofT = static_cast<const T*>(in[22]);
+  w.wdT = static_cast<const T*>(in[23]);
+  w.wd2T = static_cast<const T*>(in[24]);
+  w.w1b = static_cast<const T*>(in[25]);
+  w.S = dims[1];
+  w.H = dims[2];
+  w.SC = dims[3];
+  w.F = dims[4];
+  w.KP = kp_of(w.F);
+  w.ld = ld_of(w.H, w.SC);
+  w.ldk = w.KP + PAD;
+}
+
+template <typename T>
+Acts<T> acts_of(void* const* a) {
+  return Acts<T>{static_cast<T*>(a[0]), static_cast<T*>(a[1]), static_cast<T*>(a[2]),
+                 static_cast<T*>(a[3]), static_cast<T*>(a[4])};
+}
+
+// The row pass.  in: as trunk_fwd's, then [w1s; w1c; w1x], g, h1 h2 feat
+// v1 v2 (K2: the
+// buffers its forward fills; v2 unused); out: g_pts
+// gzs1p gfeatp gsigp gdirp gzt1p enc g_h1 g_h2 g_feat g_v1 g_v2 small;
+// dims: R S H SC F smem tile_rows G EW
+template <typename T, bool RECOMPUTE>
+int launch_rows(const void* const* in, void* const* out, const int* dims, void* stream) {
+  RowArgs<T> p;
+  fill_weights(p.w, in, dims);
+  p.pts = static_cast<const float*>(in[0]);
+  p.g = static_cast<const float*>(in[26]);
+  p.act = acts_of<T>(const_cast<void* const*>(in + 27));
   p.g_pts = static_cast<float*>(out[0]);
   p.gzs1p = static_cast<float*>(out[1]);
   p.gfeatp = static_cast<float*>(out[2]);
   p.gsigp = static_cast<float*>(out[3]);
   p.gdirp = static_cast<float*>(out[4]);
   p.gzt1p = static_cast<float*>(out[5]);
-  p.slabs = static_cast<float*>(out[6]);
-  float* const dflat = static_cast<float*>(out[7]);
-  w.S = S;
-  w.H = H;
-  w.SC = SC;
-  w.F = F;
-  w.KP = kp_of(F);
-  w.ld = ld_of(H, SC);
-  w.ldk = w.KP + PAD;
-  p.L = layout_of(H, SC, F);
-  p.R = R;
-  const int se = set_smem<STORED>(H, SC, F);
-  if (se != 0) return se;
-  if (R <= 0 || G <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  trunk_bwd_kernel<STORED><<<G, NTHREADS, smem_bytes(H, SC, F), st>>>(p);
-  cudaError_t e = cudaGetLastError();
+  p.enc = static_cast<T*>(out[6]);
+  p.cot = acts_of<T>(out + 7);
+  p.small = static_cast<float*>(out[12]);
+  p.R = dims[0];
+  const int G = dims[7];
+  p.EW = dims[8];
+  const int smem = rows_smem_bytes<T>(p.w.H, p.w.SC, p.w.F);
+  const int ew = 2 * p.w.KP + KX;
+  if (dims[5] != smem || dims[6] != tile_rows<T>() || p.EW != ew || p.R <= 0 || G <= 0 ||
+      G > p.R)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_rows_kernel<T, RECOMPUTE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned rblocks = static_cast<unsigned>((p.L.total + 255) / 256);
-  trunk_bwd_reduce<<<rblocks, 256, 0, st>>>(p.slabs, G, p.L.total, dflat);
+  trunk_bwd_rows_kernel<T, RECOMPUTE><<<G, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,45 +454,29 @@ int launch(const void* const* in, void* const* out, const int* dims, void* strea
 
 extern "C" {
 
-int trunk_bwd_kp(int F) { return kp_of(F); }
-
-int trunk_bwd_smem_bytes(int H, int SC, int F) { return smem_bytes(H, SC, F); }
-
-// The names of the slab's weight grads, in trunk_bwd_layout's order.
-const char* trunk_bwd_layout_keys() { return "w1s w1c w1x w2 wof wd wd2 wos wr b1 bd2"; }
-
-// The slab layout: for each grad of trunk_bwd_layout_keys, its offset, rows
-// and columns (a row-major block, rows padded as the kernel reads the
-// weight), then the slab's length, all in floats: 34 values.
-void trunk_bwd_layout(int H, int SC, int F, long long* out) {
-  const Layout L = layout_of(H, SC, F);
-  const long long KP = kp_of(F);
-  const long long v[34] = {L.dw1s, KP, H,  L.dw1c, KP, H,  L.dw1x, KX, H,
-                           L.dw2,  H,  H,  L.dwof, H,  SC, L.dwd,  SC, H,
-                           L.dwd2, H,  H,  L.dwos, H,  1,  L.dwr,  H,  3,
-                           L.db1,  1,  H,  L.dbd2, 1,  H,  L.total};
-  for (int i = 0; i < 34; ++i) out[i] = v[i];
-}
-
-// Blocks of the persistent grid (one slab each) for R rays on the current
-// device; returns a CUDA error code.
-int trunk_bwd_grid(int stored, int R, int H, int SC, int F, int* grid) {
-  return stored ? grid_of<true>(R, H, SC, F, grid) : grid_of<false>(R, H, SC, F, grid);
-}
-
 const char* trunk_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K2: recompute the forward, then backpropagate.  Launches the kernel and
-// the slab reduction on `stream`; returns cudaGetLastError().
-int trunk_bwd_recompute(const void* const* in, void* const* out, const int* dims, void* stream) {
-  return launch<false>(in, out, dims, stream);
+// The row pass: K2's (the forward again, activations stored in the act
+// buffers) if recompute, else K3's (the forward's activations read).
+int trunk_bwd_rows(const void* const* in, void* const* out, const int* dims, int f32,
+                   int recompute, void* stream) {
+  if (f32)
+    return recompute ? launch_rows<float, true>(in, out, dims, stream)
+                     : launch_rows<float, false>(in, out, dims, stream);
+  return recompute ? launch_rows<bf16, true>(in, out, dims, stream)
+                   : launch_rows<bf16, false>(in, out, dims, stream);
 }
 
-// K3: backpropagate through the stored activations.
-int trunk_bwd_stored(const void* const* in, void* const* out, const int* dims, void* stream) {
-  return launch<true>(in, out, dims, stream);
+// The dW products (xtg.cuh) and their reduction.
+int trunk_bwd_xtg(const long long* plan, int n, int f32, void* stream) {
+  return xtg::run(plan, n, f32, stream);
+}
+
+// The narrow grads' slabs summed in block order.
+int trunk_bwd_sum(const long long* rows, int n, void* stream) {
+  return xtg::sum_parts(rows, n, stream);
 }
 
 }  // extern "C"

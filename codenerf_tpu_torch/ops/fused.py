@@ -12,7 +12,10 @@ forward stored), one template in ``csrc/trunk_bwd.cu``.
 ``trunk_forward`` launches K1 for CUDA tensors and runs
 ``trunk_forward_plain``, which repeats the kernel's arithmetic and cast
 points in plain PyTorch, for CPU tensors; ``trunk_backward`` does the same
-for K2 / K3 and ``trunk_backward_plain``.  Each counts its launches
+for K2 / K3 and ``trunk_backward_plain``.  The kernels compute in bf16 or
+f32, with the launch plan of ``ops/plan.py``.  K2 / K3 are a row pass
+(K2's runs the forward again) and the weight-gradient products
+(``csrc/xtg.cuh``).  Each wrapper counts its launches, one per call
 (``trunk_forward.launches``, ``trunk_backward.launches_recompute`` and
 ``.launches_stored``).
 
@@ -43,7 +46,7 @@ from codenerf_tpu_torch.core.encoding import (frequency_bands,
 from codenerf_tpu_torch.models.mlp import CodeNeRF
 from codenerf_tpu_torch.models.ray_structured import (_mm, _w,
                                                       apply_codenerf_rays)
-from codenerf_tpu_torch.ops import _build
+from codenerf_tpu_torch.ops import _build, plan
 
 # row layout of K1's per-ray inputs, in the kernel's argument order
 PER_RAY_KEYS = ("zs1p", "featp", "sigp", "dirp", "zt1p")
@@ -255,14 +258,10 @@ def trunk_backward_plain(pts, per_ray: dict, b1, weights: dict, g,
 def _kernel_lib():
     """K1's library, built on first use, with every entry point typed."""
     lib = _build.load("trunk_fwd")
-    lib.trunk_fwd.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 5
-                              + [ctypes.c_void_p])
-    lib.trunk_fwd.restype = ctypes.c_int
-    lib.trunk_fwd_kp.argtypes = [ctypes.c_int]
-    lib.trunk_fwd_kp.restype = ctypes.c_int
-    lib.trunk_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.trunk_fwd_smem_bytes.restype = ctypes.c_int
-    lib.trunk_fwd_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.trunk_fwd.argtypes = [ptr, ptr, ptr, i32, ptr]
+    lib.trunk_fwd.restype = i32
+    lib.trunk_fwd_error_string.argtypes = [i32]
     lib.trunk_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -285,52 +284,81 @@ def _padded(w, rows):
     return out
 
 
+def _compute_type(name, compute_dtype):
+    cd = compute_dtype or torch.float32
+    if cd not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} computes in bfloat16 or float32, not {cd}")
+    return cd
+
+
+# the forward's weights, which the kernels also take transposed
+_FWD_KEYS = ("w1x", "w1s", "w1c", "w2", "wof", "wd", "wd2")
+# the trunk kernels' inputs, in their argument order
+_IN_KEYS = ("pts", *PER_RAY_KEYS, "b1", "w1x", "w1s", "w1c", "bands",
+            *WEIGHT_KEYS, *(k + "T" for k in _FWD_KEYS))
+
+
+def _trunk_inputs(name, pts, per_ray, b1, weights, cd, kp):
+    """The inputs of K1, K2 and K3 by name, checked and in the compute
+    type: pts [R, S, 3] f32, the per-ray rows, b1, the weights (w1s / w1c
+    zero-padded to kp rows, w1x to 16), the f32 bands, and the forward's
+    weights transposed (``<key>T``, [out, in])."""
+    dev = pts.device
+    R, S = pts.shape[:2]
+    h, sc = weights["wof"].shape
+
+    def op(t, dtype, shape, key):
+        return _operand(t, dtype, shape, key, dev, name)
+
+    ins = {"pts": op(pts, torch.float32, (R, S, 3), "pts")}
+    for k in PER_RAY_KEYS:
+        ins[k] = op(per_ray[k].to(cd).contiguous(), cd,
+                    (R, {"featp": sc, "sigp": 1, "zt1p": 3}.get(k, h)), k)
+    ins["b1"] = op(b1.to(cd).contiguous(), cd, (h,), "b1")
+    ins["w1x"] = (None if weights["w1x"] is None else
+                  op(_padded(weights["w1x"].to(cd), 16), cd, (16, h), "w1x"))
+    ins["w1s"] = op(_padded(weights["w1s"].to(cd), kp), cd, (kp, h), "w1s")
+    ins["w1c"] = op(_padded(weights["w1c"].to(cd), kp), cd, (kp, h), "w1c")
+    ins["bands"] = weights["E"][0, 0::3].float().contiguous()
+    for k, shape in (("w2", (h, h)), ("wof", (h, sc)), ("wos", (h, 1)),
+                     ("wd", (sc, h)), ("wd2", (h, h)), ("bd2", (h,)),
+                     ("wr", (h, 3))):
+        ins[k] = op(weights[k].to(cd).contiguous(), cd, shape, k)
+    for k in _FWD_KEYS:
+        ins[k + "T"] = None if ins[k] is None else ins[k].t().contiguous()
+    return ins
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
+
+
+def _check(err, name, error_string, what):
+    if err:
+        raise RuntimeError(f"{name} {what} failed: CUDA error {err} "
+                           f"({error_string(err).decode()})")
+
+
 def _trunk_cuda(pts, per_ray, weights, compute_dtype):
-    if compute_dtype != torch.bfloat16:
-        raise ValueError(f"K1 computes in bfloat16, not {compute_dtype}")
-    bf = torch.bfloat16
+    cd = _compute_type("K1", compute_dtype)
     dev = pts.device
     if pts.dim() != 3 or pts.shape[-1] != 3:
         raise ValueError(f"pts must be [R, S, 3], got {tuple(pts.shape)}")
     R, S = pts.shape[:2]
     h, sc = weights["wof"].shape
     F = weights["w1s"].shape[0] // 3
-    if h % 32 or sc % 32:
-        raise ValueError(f"K1 needs hidden and code widths that are "
-                         f"multiples of 32, got {h} and {sc}")
+    pl = plan.trunk_fwd_plan(R, S, h, sc, F, cd.itemsize)
+    ins = _trunk_inputs("K1", pts, per_ray, weights["b1"], weights, cd,
+                        pl["kp"])
     lib = _kernel_lib()
-    smem = lib.trunk_fwd_smem_bytes(h, sc, F)
-    if smem > 232448:
-        raise ValueError(f"K1 at h={h}, s={sc}, F={F} needs {smem} B of "
-                         f"shared memory per block, above the 227 KB limit")
-    kp = lib.trunk_fwd_kp(F)
-    _operand(pts, torch.float32, (R, S, 3), "pts", dev)
-    rows = {k: _operand(per_ray[k].to(bf).contiguous(), bf,
-                        (R, {"featp": sc, "sigp": 1, "zt1p": 3}.get(k, h)),
-                        k, dev) for k in PER_RAY_KEYS}
-    wts = {k: _operand(weights[k], bf, shape, k, dev) for k, shape in (
-        ("w2", (h, h)), ("wof", (h, sc)), ("wos", (h, 1)), ("wd", (sc, h)),
-        ("wd2", (h, h)), ("wr", (h, 3)))}
-    wts["bd2"] = _operand(weights["bd2"].to(bf).contiguous(), bf, (h,),
-                          "bd2", dev)
-    b1 = _operand(weights["b1"].to(bf).contiguous(), bf, (h,), "b1", dev)
-    w1s = _operand(_padded(weights["w1s"], kp), bf, (kp, h), "w1s", dev)
-    w1c = _operand(_padded(weights["w1c"], kp), bf, (kp, h), "w1c", dev)
-    w1x = (None if weights["w1x"] is None else
-           _operand(_padded(weights["w1x"], 16), bf, (16, h), "w1x", dev))
-    bands = weights["E"][0, 0::3].float().contiguous()
     out = torch.empty((R, S, 4), dtype=torch.float32, device=dev)
+    dims = (ctypes.c_int * 7)(R, S, h, sc, F, pl["smem"], pl["tile_rows"])
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.trunk_fwd(
-            pts.data_ptr(), *(rows[k].data_ptr() for k in PER_RAY_KEYS),
-            b1.data_ptr(), None if w1x is None else w1x.data_ptr(),
-            w1s.data_ptr(), w1c.data_ptr(), bands.data_ptr(),
-            *(wts[k].data_ptr() for k in WEIGHT_KEYS),
-            out.data_ptr(), R, S, h, sc, F, stream)
-    if err:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err} "
-                           f"({lib.trunk_fwd_error_string(err).decode()})")
+        err = lib.trunk_fwd(_ptrs([ins[k] for k in _IN_KEYS]), out.data_ptr(),
+                            dims, int(cd == torch.float32),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, "K1", lib.trunk_fwd_error_string, "launch")
     trunk_forward.launches += 1
     return out
 
@@ -338,8 +366,8 @@ def _trunk_cuda(pts, per_ray, weights, compute_dtype):
 def trunk_forward(pts, per_ray: dict, weights: dict, *, compute_dtype=None):
     """raw [R, S, 4] f32 from pts [R, S, 3], the per-ray rows of
     ``per_ray_parts`` and the weights of ``kernel_weights``.  Launches K1
-    for CUDA tensors (bf16 compute only) and runs the plain version for CPU
-    tensors."""
+    for CUDA tensors (bf16 or f32 compute) and runs the plain version for
+    CPU tensors."""
     if pts.device.type == "cuda":
         return _trunk_cuda(pts, per_ray, weights, compute_dtype)
     if pts.device.type == "cpu":
@@ -357,20 +385,12 @@ def _bwd_lib():
     typed."""
     lib = _build.load("trunk_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("trunk_bwd_recompute", "trunk_bwd_stored"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 4
-        fn.restype = i32
-    lib.trunk_bwd_kp.argtypes = [i32]
-    lib.trunk_bwd_kp.restype = i32
-    lib.trunk_bwd_smem_bytes.argtypes = [i32] * 3
-    lib.trunk_bwd_smem_bytes.restype = i32
-    lib.trunk_bwd_layout_keys.argtypes = []
-    lib.trunk_bwd_layout_keys.restype = ctypes.c_char_p
-    lib.trunk_bwd_layout.argtypes = [i32] * 3 + [ptr]
-    lib.trunk_bwd_layout.restype = None
-    lib.trunk_bwd_grid.argtypes = [i32] * 5 + [ptr]
-    lib.trunk_bwd_grid.restype = i32
+    lib.trunk_bwd_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.trunk_bwd_rows.restype = i32
+    lib.trunk_bwd_xtg.argtypes = [ptr, i32, i32, ptr]
+    lib.trunk_bwd_xtg.restype = i32
+    lib.trunk_bwd_sum.argtypes = [ptr, i32, ptr]
+    lib.trunk_bwd_sum.restype = i32
     lib.trunk_bwd_error_string.argtypes = [i32]
     lib.trunk_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -381,100 +401,93 @@ ACT_KEYS = ("h1", "h2", "feat", "v1", "v2")
 
 def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
     name = "K3" if acts is not None else "K2"
-    if compute_dtype != torch.bfloat16:
-        raise ValueError(f"{name} computes in bfloat16, not {compute_dtype}")
-    bf, f32 = torch.bfloat16, torch.float32
+    cd = _compute_type(name, compute_dtype)
+    f32 = torch.float32
     dev = pts.device
     if pts.dim() != 3 or pts.shape[-1] != 3:
         raise ValueError(f"pts must be [R, S, 3], got {tuple(pts.shape)}")
     R, S = pts.shape[:2]
-    if R == 0 or S == 0:
-        raise ValueError(f"{name} needs at least one sample, got R={R}, "
-                         f"S={S}")
     h, sc = weights["wof"].shape
     F = weights["w1s"].shape[0] // 3
-    if h % 32 or sc % 32:
-        raise ValueError(f"{name} needs hidden and code widths that are "
-                         f"multiples of 32, got {h} and {sc}")
+    has_x = weights["w1x"] is not None
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = plan.trunk_bwd_plan(R, S, h, sc, F, has_x, cd.itemsize, n_sm,
+                             stored=acts is not None)
+    ins = _trunk_inputs(name, pts, per_ray, b1, weights, cd, pl["kp"])
+    M, EW, G = R * S, pl["enc_width"], pl["rows"]["grid"]
+    ins["g"] = _operand(g.to(f32).contiguous(), f32, (R, S, 4), "g", dev,
+                        name)
+    # the backward's three encode products as one: [w1s; w1c; w1x]
+    ins["w1b"] = torch.cat([ins[k] for k in ("w1s", "w1c", "w1x")
+                            if ins[k] is not None])
+    width = {k: sc if k == "feat" else h for k in ACT_KEYS}
     lib = _bwd_lib()
-    smem = lib.trunk_bwd_smem_bytes(h, sc, F)
-    if smem > 232448:
-        raise ValueError(f"{name} at h={h}, s={sc}, F={F} needs {smem} B of "
-                         f"shared memory per block, above the 227 KB limit")
-    kp = lib.trunk_bwd_kp(F)
+    f32_flag = int(cd == f32)
 
-    def op(t, dtype, shape, key):
-        return _operand(t, dtype, shape, key, dev, name)
+    def new(*shape, dtype=cd):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    ins = {"pts": op(pts, f32, (R, S, 3), "pts")}
-    for k in PER_RAY_KEYS:
-        ins[k] = op(per_ray[k].to(bf).contiguous(), bf,
-                    (R, {"featp": sc, "sigp": 1, "zt1p": 3}.get(k, h)), k)
-    ins["b1"] = op(b1.to(bf).contiguous(), bf, (h,), "b1")
-    ins["w1x"] = (None if weights["w1x"] is None else
-                  op(_padded(weights["w1x"], 16), bf, (16, h), "w1x"))
-    ins["w1s"] = op(_padded(weights["w1s"], kp), bf, (kp, h), "w1s")
-    ins["w1c"] = op(_padded(weights["w1c"], kp), bf, (kp, h), "w1c")
-    ins["bands"] = weights["E"][0, 0::3].float().contiguous()
-    for k, shape in (("w2", (h, h)), ("wof", (h, sc)), ("wos", (h, 1)),
-                     ("wd", (sc, h)), ("wd2", (h, h)), ("bd2", (h,)),
-                     ("wr", (h, 3))):
-        ins[k] = op(weights[k].to(bf).contiguous(), bf, shape, k)
-    ins["g"] = op(g.to(f32).contiguous(), f32, (R, S, 4), "g")
-    for k in ACT_KEYS:
-        ins[k] = (None if acts is None else
-                  op(acts[k], bf, (R * S, sc if k == "feat" else h), k))
-
-    slab_keys = lib.trunk_bwd_layout_keys().decode().split()
-    layout = (ctypes.c_longlong * (3 * len(slab_keys) + 1))()
-    lib.trunk_bwd_layout(h, sc, F, layout)
-    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = lib.trunk_bwd_grid(int(acts is not None), R, h, sc, F,
-                                 ctypes.byref(grid))
-        if err:
-            raise RuntimeError(
-                f"{name} grid query failed: CUDA error {err} "
-                f"({lib.trunk_bwd_error_string(err).decode()})")
-        total = layout[3 * len(slab_keys)]
-        outs = {"g_pts": torch.empty((R, S, 3), dtype=f32, device=dev),
-                "zs1p": torch.empty((R, h), dtype=f32, device=dev),
-                "featp": torch.empty((R, sc), dtype=f32, device=dev),
-                "sigp": torch.empty((R, 1), dtype=f32, device=dev),
-                "dirp": torch.empty((R, h), dtype=f32, device=dev),
-                "zt1p": torch.empty((R, 3), dtype=f32, device=dev),
-                "slabs": torch.empty((grid.value, total), dtype=f32,
-                                     device=dev),
-                "dflat": torch.empty((total,), dtype=f32, device=dev)}
-        in_order = (["pts", *PER_RAY_KEYS, "b1", "w1x", "w1s", "w1c",
-                     "bands", *WEIGHT_KEYS, "g", *ACT_KEYS])
-        in_arr = (ctypes.c_void_p * len(in_order))(
-            *(None if ins[k] is None else ins[k].data_ptr()
-              for k in in_order))
-        out_arr = (ctypes.c_void_p * len(outs))(
-            *(t.data_ptr() for t in outs.values()))
-        dims = (ctypes.c_int * 6)(R, S, h, sc, F, grid.value)
-        fn = lib.trunk_bwd_stored if acts is not None else (
-            lib.trunk_bwd_recompute)
-        err = fn(in_arr, out_arr, dims,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.trunk_bwd_error_string(err).decode()})")
-    if acts is not None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if acts is None:
+            # K2's row pass runs the forward again and stores h1 h2 feat v1
+            # for the dW products
+            acts = {k: None if k == "v2" else new(M, width[k])
+                    for k in ACT_KEYS}
+        else:
+            acts = {k: _operand(acts[k], cd, (M, width[k]), k, dev, name)
+                    for k in ACT_KEYS}
+        outs = {"g_pts": new(R, S, 3, dtype=f32),
+                "zs1p": new(R, h, dtype=f32), "featp": new(R, sc, dtype=f32),
+                "sigp": new(R, 1, dtype=f32), "dirp": new(R, h, dtype=f32),
+                "zt1p": new(R, 3, dtype=f32), "enc": new(M, EW)}
+        cot = {k: new(M, width[k]) for k in ACT_KEYS}
+        small = new(G, pl["small_width"], dtype=f32)
+        rp = pl["rows"]
+        err = lib.trunk_bwd_rows(
+            _ptrs([ins[k] for k in (*_IN_KEYS, "w1b", "g")]
+                  + [acts[k] for k in ACT_KEYS]),
+            _ptrs(list(outs.values()) + [cot[k] for k in ACT_KEYS]
+                  + [small]),
+            (ctypes.c_int * 9)(R, S, h, sc, F, rp["smem"], rp["tile_rows"],
+                               G, EW), f32_flag, int(pl["recompute"]), stream)
+        _check(err, name, lib.trunk_bwd_error_string, "row pass launch")
+
+        # the dW products: [sin | cos | x]^T g_h1, h1^T g_h2, h2^T g_feat,
+        # feat^T g_v1, v1^T g_v2
+        gemm = pl["gemm"]
+        pairs = ((outs["enc"], EW, cot["h1"], h),
+                 (acts["h1"], h, cot["h2"], h),
+                 (acts["h2"], h, cot["feat"], sc),
+                 (acts["feat"], sc, cot["v1"], h),
+                 (acts["v1"], h, cot["v2"], h))
+        dws = [new(p["kd"], p["nd"], dtype=f32) for p in gemm["products"]]
+        part = new(gemm["part_floats"], dtype=f32)
+        rows = plan.xtg_rows(gemm, [(a.data_ptr(), lda, b.data_ptr(), ldb,
+                                     d.data_ptr()) for (a, lda, b, ldb), d
+                                    in zip(pairs, dws)], part.data_ptr())
+        err = lib.trunk_bwd_xtg((ctypes.c_longlong * len(rows))(*rows),
+                                len(dws), f32_flag, stream)
+        _check(err, name, lib.trunk_bwd_error_string, "dW product launch")
+        narrow = new(pl["small_width"], dtype=f32)
+        err = lib.trunk_bwd_sum((ctypes.c_longlong * 4)(
+            small.data_ptr(), narrow.data_ptr(), G, pl["small_width"]), 1,
+            stream)
+        _check(err, name, lib.trunk_bwd_error_string, "slab sum launch")
+    if name == "K3":
         trunk_backward.launches_stored += 1
     else:
         trunk_backward.launches_recompute += 1
 
-    # each grad's block of the reduced slab, cut to its weight's shape
-    flat, dw = outs["dflat"], {}
-    for i, k in enumerate(slab_keys):
-        off, rows, cols = layout[3 * i:3 * i + 3]
-        block = flat[off:off + rows * cols].view(rows, cols)
-        want = b1 if k == "b1" else weights[k]
-        dw[k] = (None if want is None else block[0] if want.dim() == 1
-                 else block[:want.shape[0]])
-    db1 = dw.pop("b1")
+    # the encode product's rows: sin, cos, x, then the ones' row (db1)
+    kp, F3 = pl["kp"], 3 * F
+    w1 = dws[0]
+    dw = {"w1s": w1[:F3], "w1c": w1[kp:kp + F3],
+          "w1x": w1[2 * kp:2 * kp + 3] if has_x else None,
+          "w2": dws[1], "wof": dws[2], "wd": dws[3], "wd2": dws[4],
+          "wos": narrow[:h].view(h, 1), "wr": narrow[h:4 * h].view(h, 3),
+          "bd2": narrow[4 * h:5 * h]}
+    db1 = w1[2 * kp + 3]
     g_per_ray = {k: outs[k] for k in PER_RAY_KEYS}
     return outs["g_pts"], g_per_ray, db1, dw
 
@@ -484,7 +497,7 @@ def trunk_backward(pts, per_ray: dict, b1, weights: dict, g,
     """Grads of the trunk for the cotangent g [R, S, 4]: (g_pts, per-ray
     grads, db1, weight grads), as ``trunk_backward_plain`` returns them.
     Launches K2, or K3 when the forward's activations ``acts`` are given,
-    for CUDA tensors (bf16 compute only), and runs the plain version for
+    for CUDA tensors (bf16 or f32 compute), and runs the plain version for
     CPU tensors."""
     if pts.device.type == "cuda":
         return _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts,

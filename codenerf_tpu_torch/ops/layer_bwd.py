@@ -1,4 +1,4 @@
-"""The single-pass backward of one linear + relu layer, K4 (counterpart
+"""The backward of one linear + relu layer, K4 (counterpart
 of ``codenerf_tpu/ops/layer_bwd.py::linear_relu_bwd_pallas``).
 
 For ``y = relu(x @ w + b)`` and the cotangent ``g`` of ``y``:
@@ -12,7 +12,10 @@ For ``y = relu(x @ w + b)`` and the cotangent ``g`` of ``y``:
 
 Plain autograd makes three passes over the [rows, N] arrays (the mask,
 the dx product and the dw product each read gp); K4
-(``csrc/layer_bwd.cu``) reads x, y and g once and keeps gp on chip.
+(``csrc/layer_bwd.cu``) makes two: a row pass reads y and g once and
+writes gp, dx and db, then a tall split-K product (``csrc/xtg.cuh``)
+reads x and gp once for dw.  Its launch plan is
+``ops/plan.py::layer_bwd_plan``.
 
 ``linear_relu_bwd`` launches K4 for CUDA tensors and runs
 ``linear_relu_bwd_plain`` for CPU tensors; it counts its launches
@@ -29,7 +32,7 @@ import functools
 
 import torch
 
-from codenerf_tpu_torch.ops import _build
+from codenerf_tpu_torch.ops import _build, plan
 
 
 def _unbroadcast(gb, shape):
@@ -64,10 +67,12 @@ def _kernel_lib():
     """K4's library, built on first use, with every entry point typed."""
     lib = _build.load("layer_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.layer_bwd_grid.argtypes = [i32] * 6 + [ptr]
-    lib.layer_bwd_grid.restype = i32
-    lib.layer_bwd.argtypes = [ptr] * 4 + [ptr] * 4 + [i32] * 6 + [ptr]
-    lib.layer_bwd.restype = i32
+    lib.layer_bwd_rows.argtypes = [ptr, ptr, i32, ptr]
+    lib.layer_bwd_rows.restype = i32
+    lib.layer_bwd_xtg.argtypes = [ptr, i32, i32, ptr]
+    lib.layer_bwd_xtg.restype = i32
+    lib.layer_bwd_sum.argtypes = [ptr, i32, ptr]
+    lib.layer_bwd_sum.restype = i32
     lib.layer_bwd_error_string.argtypes = [i32]
     lib.layer_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -118,39 +123,53 @@ def _layer_bwd_cuda(x, w, b, y, g, cd):
                          f"{tuple(b.shape)}")
     if M == 0:
         raise ValueError("K4 needs at least one row")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = plan.layer_bwd_plan(M, S, K, N, per_ray, ct.itemsize, n_sm)
     xf = _operand(x, ct, tuple(x.shape), "x", dev)
     yf = _operand(y, ct, tuple(y.shape), "y", dev)
     gf = _operand(g, ct, tuple(g.shape), "g", dev)
     wc = _operand(w, ct, (K, N), "w", dev)
     lib = _kernel_lib()
-    bf = int(ct == torch.bfloat16)
-    grid = ctypes.c_int(0)
+    f32 = torch.float32
+    rp, gemm = pl["rows"], pl["gemm"]
+    G = rp["grid"]
     with torch.cuda.device(dev):
-        err = lib.layer_bwd_grid(bf, int(per_ray), M, S, K, N,
-                                 ctypes.byref(grid))
-        if err:
-            raise RuntimeError(
-                f"K4 grid query failed: CUDA error {err} "
-                f"({lib.layer_bwd_error_string(err).decode()})")
-        G = grid.value
-        stride = K * N + (0 if per_ray else N)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         dx = torch.empty_like(xf)
-        slabs = torch.empty((G, stride), dtype=torch.float32, device=dev)
-        flat = torch.empty((stride,), dtype=torch.float32, device=dev)
-        db_rows = (torch.empty((R, N), dtype=torch.float32, device=dev)
-                   if per_ray else None)
-        err = lib.layer_bwd(
-            xf.data_ptr(), wc.data_ptr(), yf.data_ptr(), gf.data_ptr(),
-            dx.data_ptr(), slabs.data_ptr(), flat.data_ptr(),
-            None if db_rows is None else db_rows.data_ptr(),
-            bf, M, S, K, N, G, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"K4 launch failed: CUDA error {err} "
-                           f"({lib.layer_bwd_error_string(err).decode()})")
+        gp = torch.empty((M, N), dtype=ct, device=dev)
+        db_rows = (torch.empty((R, N), dtype=f32, device=dev) if per_ray
+                   else None)
+        db_part = (None if per_ray else
+                   torch.empty((G, N), dtype=f32, device=dev))
+        ptrs = (ctypes.c_void_p * 7)(*(
+            None if t is None else t.data_ptr()
+            for t in (wc, yf, gf, gp, dx, db_rows, db_part)))
+        dims = (ctypes.c_longlong * 7)(M, S, K, N, G, rp["smem"],
+                                       rp["tile_rows"])
+        f32_flag = int(ct == f32)
+        _check(lib, lib.layer_bwd_rows(ptrs, dims, f32_flag, stream),
+               "row pass launch")
+        # dw = x^T gp over all rows
+        dw = torch.empty((K, N), dtype=f32, device=dev)
+        part = torch.empty((gemm["part_floats"],), dtype=f32, device=dev)
+        rows = plan.xtg_rows(gemm, [(xf.data_ptr(), K, gp.data_ptr(), N,
+                                     dw.data_ptr())], part.data_ptr())
+        _check(lib, lib.layer_bwd_xtg((ctypes.c_longlong * len(rows))(*rows),
+                                      1, f32_flag, stream),
+               "dw product launch")
+        if not per_ray:
+            db = torch.empty((N,), dtype=f32, device=dev)
+            _check(lib, lib.layer_bwd_sum((ctypes.c_longlong * 4)(
+                db_part.data_ptr(), db.data_ptr(), G, N), 1, stream),
+                   "db sum launch")
     linear_relu_bwd.launches += 1
-    dw = flat[:K * N].view(K, N)
-    db = db_rows.view(R, 1, N) if per_ray else flat[K * N:]
-    return dx, dw, db
+    return dx, dw, db_rows.view(R, 1, N) if per_ray else db
+
+
+def _check(lib, err, what):
+    if err:
+        raise RuntimeError(f"K4 {what} failed: CUDA error {err} "
+                           f"({lib.layer_bwd_error_string(err).decode()})")
 
 
 def linear_relu_bwd(x, w, b, y, g, cd=None):

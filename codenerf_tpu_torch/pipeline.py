@@ -22,9 +22,8 @@ The trunk's path follows JAX's gates (pipeline.py:200-248, remat at
 
 JAX's ``default_backend() == "tpu"`` clause becomes the port's one rule:
 within a path, CUDA tensors run the kernels and CPU tensors their plain
-versions.  No path is picked after a kernel fails; K1-K3 compute in bf16
-only and raise for another compute dtype on CUDA, so an f32 config runs
-the "rays" path there.
+versions.  No path is picked after a kernel fails.  K1-K4 compute in
+bf16 or f32, so every path runs an f32 config on the card as in JAX.
 """
 
 from __future__ import annotations

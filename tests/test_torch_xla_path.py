@@ -92,8 +92,8 @@ def test_flagship_values_select_the_ray_structured_path_with_remat():
 
 
 def test_f32_config_selects_the_ray_structured_path():
-    """configs/synth-smoke.yml (f32, no Pallas flag) takes the path that
-    computes in f32 on the card; K1-K3 compute in bf16 only."""
+    """configs/synth-smoke.yml (f32, no Pallas flag) takes the
+    ray-structured path, as in JAX."""
     s = RenderSettings.from_config(load_config(ROOT / "configs"
                                                / "synth-smoke.yml"))
     assert trunk_path(s) == "rays" and not remat_active(s)
