@@ -18,7 +18,9 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
                bit-identical across two calls; K1-K4 also in f32 (gate
                1e-4: both sum in f32, in other orders); kernel, plain and
                library times (CUDA events around back-to-back calls)
-               beside the bound.
+               beside the bound (K1: the kernel on inputs packed once, and
+               its wrapper, which packs them every call; its share of the
+               bf16 peak).
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
                with K1 (``use_pallas``; K1's launch count must rise by
                exactly 8), the same image with the plain trunk (PSNR gate
@@ -212,6 +214,37 @@ def profile_call(fn, args, unprofiled_ms, kernels: dict) -> dict:
                                      for k, v in kernel_ms.items()},
             "n_kernel_names": len(by_name),
             "top": [[k[:80], v] for k, v in top]}
+
+
+def trunk_forward_library(pts, per_ray, weights):
+    """The library yardstick of K1: the plain chain of
+    ``trunk_forward_plain`` with every product a bf16 cuBLAS GEMM (f32
+    accumulation, bf16 out) and the same elementwise ops.  Timed only;
+    nothing on the port's path calls it."""
+    bf = torch.bfloat16
+    R, S = pts.shape[:2]
+    N = R * S
+
+    def mm(x, w):
+        return x.to(bf) @ w.to(bf)
+
+    def rep(k):
+        return per_ray[k].to(bf).repeat_interleave(S, dim=0)
+
+    bands = weights["E"][0, 0::3].float()
+    scaled = (pts[..., None, :] * bands[:, None]).reshape(N, -1)
+    h = mm(torch.sin(scaled), weights["w1s"]) + mm(torch.cos(scaled),
+                                                   weights["w1c"])
+    if weights["w1x"] is not None:
+        h = h + mm(pts.reshape(N, 3), weights["w1x"])
+    h1 = torch.relu(h + weights["b1"].to(bf))
+    h2 = torch.relu(mm(h1, weights["w2"]) + rep("zs1p"))
+    feat = mm(h2, weights["wof"]) + rep("featp")
+    sigma = mm(h2, weights["wos"]).float() + rep("sigp").float()
+    v1 = torch.relu(mm(feat, weights["wd"]) + rep("dirp"))
+    v2 = torch.relu(mm(v1, weights["wd2"]) + weights["bd2"].to(bf))
+    rgb = mm(v2, weights["wr"]).float() + rep("zt1p").float()
+    return torch.cat([rgb, sigma], dim=-1).reshape(R, S, 4)
 
 
 def bwd_cost(R, S, weights, per_ray, F, stored) -> dict:
@@ -640,17 +673,30 @@ def check_k1(settings, model, ro, rd, zs, zt, chunk, card) -> dict:
             rel_rms = float(torch.linalg.norm(got - want)
                             / torch.linalg.norm(want))
             del got, again, want
-            ms, plain_ms = time_ms(kern), time_ms(plain, calls=3)
+            # the kernel alone: launches on inputs the wrapper packed once;
+            # the wrapper: checks, casts and packs the inputs every call
+            _, launch = fused.trunk_forward_launcher(
+                pts, per_ray, weights, compute_dtype=cfg.cdtype)
+            ms, wrapper_ms = time_ms(launch), time_ms(kern)
+            del launch
+            plain_ms = time_ms(plain, calls=3)
+            library_ms = time_ms(lambda: trunk_forward_library(
+                pts, per_ray, weights), calls=3)
             cost = k1_cost(R, S, weights, per_ray, F)
             b_ms, b_by = bound_ms(cost)
             row = {"R": R, "S": S, "max_abs_err": float(err.max()),
-                   "rel_rms": rel_rms, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "cost": cost}
+                   "rel_rms": rel_rms, "ms": ms, "wrapper_ms": wrapper_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bf16_peak_share": cost["bf16_flops"] / (ms * 1e-3)
+                   / PEAK_BF16, "cost": cost}
             print(f"K1 R={R} S={S}: max_abs_err={row['max_abs_err']:.6g} "
                   f"rel_rms={rel_rms:.6g}, bit-identical across two calls; "
-                  f"ms={ms:.6g} plain_ms={plain_ms:.6g} "
+                  f"ms={ms:.6g} wrapper_ms={wrapper_ms:.6g} "
+                  f"plain_ms={plain_ms:.6g} library_ms={library_ms:.6g} "
                   f"bound_ms={b_ms:.6g} ({b_by}) "
                   f"achieved={cost['bf16_flops'] / ms / 1e9:.6g} TFLOP/s "
+                  f"({row['bf16_peak_share']:.4g} of the bf16 peak) "
                   f"on {card}", flush=True)
             if not rel_rms <= REL_RMS_GATE:
                 raise RuntimeError(f"K1 disagrees with its plain version at "
@@ -948,7 +994,7 @@ def main():
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, built in builds.items():
         ptxas = [ln.strip() for ln in built["log"].splitlines()
-                 if "registers" in ln or "spill" in ln
+                 if "registers" in ln or "spill" in ln or "serialized" in ln
                  or "Function properties" in ln]
         print(f"build: {name} {built['path'].name} in "
               f"{built['seconds']:.2f} s; " + " | ".join(ptxas), flush=True)
@@ -1120,7 +1166,8 @@ def main():
     def per_call(R):
         rows = [s for s in k1["shapes"] if s["R"] == R]
         cost = {k: sum(s["cost"][k] for s in rows) for k in rows[0]["cost"]}
-        return ({k: sum(s[k] for s in rows) for k in ("ms", "plain_ms")},
+        return ({k: sum(s[k] for s in rows)
+                 for k in ("ms", "wrapper_ms", "plain_ms", "library_ms")},
                 cost)
 
     image, image_cost = per_call(chunk)
@@ -1134,16 +1181,28 @@ def main():
         "replaces": "codenerf_tpu/ops/fused.py:75",
         "launches": launches,
         "max_abs_err": max(s["max_abs_err"] for s in k1["shapes"]),
+        "rel_rms": max(s["rel_rms"] for s in k1["shapes"]),
         "ms": n_chunks * image["ms"],
         "plain_ms": n_chunks * image["plain_ms"],
         "bound_ms": image_bound_ms,
         "bound_by": image_bound_by,
-        "library_ms": None,
+        "library_ms": n_chunks * image["library_ms"],
+        "library_note": "the plain chain with bf16 cuBLAS products "
+                        "(f32 accumulation) and the same elementwise ops "
+                        "(trunk_forward_library)",
+        "wrapper_ms": n_chunks * image["wrapper_ms"],
+        "bf16_peak_share": image_cost["bf16_flops"]
+        / (n_chunks * image["ms"] * 1e-3) / PEAK_BF16,
+        "ms_note": "CUDA events around back-to-back launches of the kernel "
+                   "on inputs packed once; wrapper_ms times trunk_forward, "
+                   "which checks, casts and packs them every call",
         "per": f"one {size}x{size} image: {n_chunks} launches at each S of "
                f"{sorted({s['S'] for s in k1['shapes']})}, R={chunk}",
         "launches_per_train_step": train["fused"]["launches_per_step"]["K1"],
         "train_step_ms": step_k1["ms"],
+        "train_step_wrapper_ms": step_k1["wrapper_ms"],
         "train_step_plain_ms": step_k1["plain_ms"],
+        "train_step_library_ms": step_k1["library_ms"],
         "train_step_bound_ms": bound_ms(step_k1_cost)[0],
         "shapes": k1["shapes"],
         "f32": f32_cases["K1"],

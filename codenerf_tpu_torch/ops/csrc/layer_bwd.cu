@@ -208,7 +208,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) layer_bwd_rows_bf16(const Args<bf
       hopper::wgmma_fence();
       for (int s = 0; s < ncb * 4; ++s) {
         const uint32_t off = (s & 3) * 32;
-        hopper::wgmma_m64n128k16_nn(
+        hopper::wgmma_nn<128>(
             acc, hopper::desc(gS + (s >> 2) * (64 * 128) + off, 16, 1024),
             hopper::desc(wS + (s >> 2) * (KR * 128) + wg * 128 * 128 + off, 16, 1024));
       }

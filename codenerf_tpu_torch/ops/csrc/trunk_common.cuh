@@ -2,18 +2,22 @@
 // K2 / K3 (trunk_bwd.cu).
 //
 // K2 recomputes K1's forward and takes its relu masks from the recomputed
-// activations, so both kernels must produce the same activations bit for
-// bit.  They do so by running the same code: the encode and the five hidden
-// layers (fwd_front, fwd_back) live here, with the TPU
-// kernel's cast points for the compute type T (every product an f32 sum of
-// T products rounded to T; per-ray rows and biases added in T).
+// activations.  In f32 both kernels run the same code, the encode and the
+// five hidden layers here (fwd_front, fwd_back), so they produce the same
+// activations bit for bit.  bf16 K1 is a kernel of its own (trunk_fwd.cu,
+// wgmma with streamed weights) that sums its products in another order,
+// so a bf16 rounding, and with it a relu mask, can rarely differ from K2's
+// recompute; the fused step's gradient gate covers that.  Both keep the
+// TPU kernel's cast points for the compute type T (every product an f32
+// sum of T products rounded to T; per-ray rows and biases added in T).
 //
-// T is bf16 (the flagship; products on the tensor cores through wmma
-// 16x16x16 with f32 accumulators) or float (compute_dtype float32; products
-// on the CUDA cores in f32 fma, no TF32, so every rounding to T is exact
-// and nothing is rounded between products, as in JAX with cd = f32).  A
-// tile is 64 rows in bf16 and 32 in f32: the same bytes of shared memory.
-// The build hashes this header into both libraries' names.
+// T is bf16 (K2 / K3; products on the tensor cores through wmma 16x16x16
+// with f32 accumulators) or float (K1 and K2 / K3 in compute_dtype
+// float32; products on the CUDA cores in f32 fma, no TF32, so every
+// rounding to T is exact and nothing is rounded between products, as in
+// JAX with cd = f32).  A tile is 64 rows in bf16 and 32 in f32: the same
+// bytes of shared memory.  The build hashes this header into both
+// libraries' names.
 
 #pragma once
 
@@ -352,7 +356,7 @@ __host__ __device__ inline int fwd_smem_bytes(int H, int SC, int F) {
          TM * 4;
 }
 
-// K1's tile of rows [row0, row0 + TM): raw = [rgb | sigma] f32 to
+// f32 K1's tile of rows [row0, row0 + TM): raw = [rgb | sigma] f32 to
 // out [nrows, 4].
 template <typename T>
 __device__ __forceinline__ void fwd_tile(const TrunkW<T>& w, const float* gpts, long long nrows,

@@ -39,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from codenerf_tpu_torch.core.encoding import (frequency_bands,
@@ -259,8 +260,10 @@ def _kernel_lib():
     """K1's library, built on first use, with every entry point typed."""
     lib = _build.load("trunk_fwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.trunk_fwd.argtypes = [ptr, ptr, ptr, i32, ptr]
-    lib.trunk_fwd.restype = i32
+    lib.trunk_fwd_bf16.argtypes = [ptr, ptr, ptr, ptr]
+    lib.trunk_fwd_bf16.restype = i32
+    lib.trunk_fwd_f32.argtypes = [ptr, ptr, ptr, ptr]
+    lib.trunk_fwd_f32.restype = i32
     lib.trunk_fwd_error_string.argtypes = [i32]
     lib.trunk_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -298,11 +301,10 @@ _IN_KEYS = ("pts", *PER_RAY_KEYS, "b1", "w1x", "w1s", "w1c", "bands",
             *WEIGHT_KEYS, *(k + "T" for k in _FWD_KEYS))
 
 
-def _trunk_inputs(name, pts, per_ray, b1, weights, cd, kp):
-    """The inputs of K1, K2 and K3 by name, checked and in the compute
-    type: pts [R, S, 3] f32, the per-ray rows, b1, the weights (w1s / w1c
-    zero-padded to kp rows, w1x to 16), the f32 bands, and the forward's
-    weights transposed (``<key>T``, [out, in])."""
+def _row_inputs(name, pts, per_ray, b1, weights, cd):
+    """The trunk kernels' inputs other than the product weights, by name,
+    checked and in the compute type: pts [R, S, 3] f32, the per-ray rows,
+    b1, the f32 bands, bd2 and the heads' weights wos and wr."""
     dev = pts.device
     R, S = pts.shape[:2]
     h, sc = weights["wof"].shape
@@ -315,14 +317,30 @@ def _trunk_inputs(name, pts, per_ray, b1, weights, cd, kp):
         ins[k] = op(per_ray[k].to(cd).contiguous(), cd,
                     (R, {"featp": sc, "sigp": 1, "zt1p": 3}.get(k, h)), k)
     ins["b1"] = op(b1.to(cd).contiguous(), cd, (h,), "b1")
+    ins["bands"] = weights["E"][0, 0::3].float().contiguous()
+    for k, shape in (("wos", (h, 1)), ("bd2", (h,)), ("wr", (h, 3))):
+        ins[k] = op(weights[k].to(cd).contiguous(), cd, shape, k)
+    return ins
+
+
+def _trunk_inputs(name, pts, per_ray, b1, weights, cd, kp):
+    """The inputs of f32 K1, K2 and K3 by name, checked and in the compute
+    type: ``_row_inputs``, the weights (w1s / w1c zero-padded to kp rows,
+    w1x to 16), and the forward's weights transposed (``<key>T``, [out,
+    in])."""
+    dev = pts.device
+    h, sc = weights["wof"].shape
+
+    def op(t, dtype, shape, key):
+        return _operand(t, dtype, shape, key, dev, name)
+
+    ins = _row_inputs(name, pts, per_ray, b1, weights, cd)
     ins["w1x"] = (None if weights["w1x"] is None else
                   op(_padded(weights["w1x"].to(cd), 16), cd, (16, h), "w1x"))
     ins["w1s"] = op(_padded(weights["w1s"].to(cd), kp), cd, (kp, h), "w1s")
     ins["w1c"] = op(_padded(weights["w1c"].to(cd), kp), cd, (kp, h), "w1c")
-    ins["bands"] = weights["E"][0, 0::3].float().contiguous()
-    for k, shape in (("w2", (h, h)), ("wof", (h, sc)), ("wos", (h, 1)),
-                     ("wd", (sc, h)), ("wd2", (h, h)), ("bd2", (h,)),
-                     ("wr", (h, 3))):
+    for k, shape in (("w2", (h, h)), ("wof", (h, sc)), ("wd", (sc, h)),
+                     ("wd2", (h, h))):
         ins[k] = op(weights[k].to(cd).contiguous(), cd, shape, k)
     for k in _FWD_KEYS:
         ins[k + "T"] = None if ins[k] is None else ins[k].t().contiguous()
@@ -340,7 +358,93 @@ def _check(err, name, error_string, what):
                            f"({error_string(err).decode()})")
 
 
-def _trunk_cuda(pts, per_ray, weights, compute_dtype):
+# the sources of bf16 K1's weight images ([in, out] each), in order
+_K1_SOURCES = ("w1s", "w1c", "w1x", "w2", "wof", "wd", "wd2")
+
+
+@functools.lru_cache(maxsize=None)
+def k1_image_index(H: int, SC: int, F: int, has_x: bool) -> np.ndarray:
+    """Where each element of bf16 K1's weight images comes from: an index
+    into the flat concatenation of ``_K1_SOURCES`` (w1x only with the
+    input term) followed by one zero.
+
+    The images follow ``plan.k1_chunks``: the first layer's [w1s^T |
+    w1c^T | w1x^T] at the encode's columns (sin at 0, cos at 32, x at
+    64; zero elsewhere, and all of x's without the input term), then
+    w2^T, wof^T, wd^T, wd2^T.  Each transposed weight [N, K] is
+    zero-padded to the wgmma widths in N and K and laid out K-major with
+    the 128-byte swizzle of ``csrc/hopper.cuh``: chunk c holds the rows'
+    columns [64 c, 64 c + 64), 128 bytes a row, and the 16-byte piece q of
+    row n sits at piece position q ^ (n % 8)."""
+    shapes = {"w1s": (3 * F, H), "w1c": (3 * F, H), "w1x": (3, H),
+              "w2": (H, H), "wof": (H, SC), "wd": (SC, H), "wd2": (H, H)}
+    offset, total = {}, 0
+    for k in _K1_SOURCES:
+        if k != "w1x" or has_x:
+            offset[k] = total
+            total += shapes[k][0] * shapes[k][1]
+
+    def image(n_pad, k_pad, parts):
+        idx = np.full((n_pad, k_pad), total, dtype=np.int64)
+        for key, k0 in parts:
+            rows, N = shapes[key]
+            n, k = np.arange(N)[:, None], np.arange(rows)[None, :]
+            idx[n, k0 + k] = offset[key] + k * N + n     # W^T[n, k] = W[k, n]
+        kc = k_pad // plan.K1_CHUNK_K
+        pieces = idx.reshape(n_pad, kc, 8, 8).transpose(1, 0, 2, 3)
+        n = np.arange(n_pad)[:, None]
+        return pieces[:, n, np.arange(8)[None, :] ^ (n % 8)].reshape(-1)
+
+    nh, ns = plan.k1_wgmma_width(H), plan.k1_wgmma_width(SC)
+    first = [("w1s", 0), ("w1c", 32)] + ([("w1x", 64)] if has_x else [])
+    return np.concatenate([
+        image(nh, 128, first), image(nh, nh, [("w2", 0)]),
+        image(ns, nh, [("wof", 0)]), image(nh, ns, [("wd", 0)]),
+        image(nh, nh, [("wd2", 0)])])
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_index_on(H, SC, F, has_x, device):
+    return torch.from_numpy(k1_image_index(H, SC, F, has_x)).to(device)
+
+
+def k1_images(weights: dict, pl: dict, cd=torch.bfloat16):
+    """bf16 K1's weight images, packed once per call (``k1_image_index``):
+    one concatenation of the weights in ``cd`` and one gather."""
+    h, sc = weights["wof"].shape
+    F = weights["w1s"].shape[0] // 3
+    has_x = weights["w1x"] is not None
+    srcs = [weights[k].detach().to(cd).reshape(-1) for k in _K1_SOURCES
+            if weights[k] is not None]
+    flat = torch.cat(srcs + [srcs[0].new_zeros(1)])
+    img = flat[_k1_index_on(h, sc, F, has_x, flat.device)]
+    if img.numel() * img.element_size() != pl["image_bytes"]:
+        raise ValueError(f"K1's weight images hold "
+                         f"{img.numel() * img.element_size()} B, the plan "
+                         f"{pl['image_bytes']} B")
+    return img
+
+
+# bf16 K1's inputs before the images, in its argument order
+_BF16_KEYS = ("pts", *PER_RAY_KEYS, "b1", "bd2", "wos", "wr", "bands")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# bf16 K1's plan by shape (read only): the render and the step ask for the
+# same few shapes every call
+_k1_plan = functools.lru_cache(maxsize=64)(plan.trunk_fwd_wgmma_plan)
+
+
+def trunk_forward_launcher(pts, per_ray: dict, weights: dict, *,
+                           compute_dtype=None):
+    """K1's inputs for CUDA tensors, checked, cast and packed: (out,
+    launch), where each ``launch()`` runs K1 on them into ``out`` [R, S, 4]
+    f32 and counts the launch.  ``trunk_forward`` launches once; a timing
+    loop launches again without repacking."""
     cd = _compute_type("K1", compute_dtype)
     dev = pts.device
     if pts.dim() != 3 or pts.shape[-1] != 3:
@@ -348,28 +452,47 @@ def _trunk_cuda(pts, per_ray, weights, compute_dtype):
     R, S = pts.shape[:2]
     h, sc = weights["wof"].shape
     F = weights["w1s"].shape[0] // 3
-    pl = plan.trunk_fwd_plan(R, S, h, sc, F, cd.itemsize)
-    ins = _trunk_inputs("K1", pts, per_ray, weights["b1"], weights, cd,
-                        pl["kp"])
     lib = _kernel_lib()
     out = torch.empty((R, S, 4), dtype=torch.float32, device=dev)
-    dims = (ctypes.c_int * 7)(R, S, h, sc, F, pl["smem"], pl["tile_rows"])
-    with torch.cuda.device(dev):
-        err = lib.trunk_fwd(_ptrs([ins[k] for k in _IN_KEYS]), out.data_ptr(),
-                            dims, int(cd == torch.float32),
-                            torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, "K1", lib.trunk_fwd_error_string, "launch")
-    trunk_forward.launches += 1
-    return out
+    if cd == torch.bfloat16:
+        pl = _k1_plan(R, S, h, sc, F, _sm_count(dev.index))
+        ins = _row_inputs("K1", pts, per_ray, weights["b1"], weights, cd)
+        ins["img"] = k1_images(weights, pl, cd)
+        dims = (ctypes.c_longlong * 12)(
+            R, S, h, sc, F, pl["tile_rows"], pl["smem"], pl["grid"],
+            pl["tiles"], pl["image_bytes"], pl["nh"], pl["ns"])
+        entry, ptrs = lib.trunk_fwd_bf16, _ptrs(
+            [ins[k] for k in (*_BF16_KEYS, "img")])
+    else:
+        pl = plan.trunk_fwd_plan(R, S, h, sc, F, cd.itemsize)
+        ins = _trunk_inputs("K1", pts, per_ray, weights["b1"], weights, cd,
+                            pl["kp"])
+        dims = (ctypes.c_int * 7)(R, S, h, sc, F, pl["smem"],
+                                  pl["tile_rows"])
+        entry, ptrs = lib.trunk_fwd_f32, _ptrs([ins[k] for k in _IN_KEYS])
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = entry(ptrs, out.data_ptr(), dims,
+                        torch.cuda.current_stream(dev).cuda_stream)
+        _check(err, "K1", lib.trunk_fwd_error_string, "launch")
+        trunk_forward.launches += 1
+
+    launch.inputs = ins       # keeps the packed inputs alive with launch
+    return out, launch
 
 
 def trunk_forward(pts, per_ray: dict, weights: dict, *, compute_dtype=None):
     """raw [R, S, 4] f32 from pts [R, S, 3], the per-ray rows of
     ``per_ray_parts`` and the weights of ``kernel_weights``.  Launches K1
-    for CUDA tensors (bf16 or f32 compute) and runs the plain version for
-    CPU tensors."""
+    for CUDA tensors (bf16: the persistent wgmma kernel, widths at most
+    ``plan.K1_MAX_WIDTH``; f32: the CUDA-core kernel) and runs the plain
+    version for CPU tensors."""
     if pts.device.type == "cuda":
-        return _trunk_cuda(pts, per_ray, weights, compute_dtype)
+        out, launch = trunk_forward_launcher(pts, per_ray, weights,
+                                             compute_dtype=compute_dtype)
+        launch()
+        return out
     if pts.device.type == "cpu":
         return trunk_forward_plain(pts, per_ray, weights,
                                    compute_dtype=compute_dtype)

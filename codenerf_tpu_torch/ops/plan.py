@@ -22,6 +22,14 @@ XTG_TILE = {2: (128, 256), 4: (64, 64)}   # (kd, nd) per tile by element size
 XTG_SMEM = {2: 4 * 64 * (128 + 256) * 2 + 1024, 4: 32 * (64 + 64) * 4}
 XTG_MAX_PRODUCTS = 8
 K4_MAX_WIDTH = 256          # bf16 K4 keeps w [K, N] in shared memory
+K1_MAX_WIDTH = 256          # bf16 K1: a wgmma's N, and one layer's output
+                            # held in a warpgroup's registers
+K1_TILE = 128               # bf16 K1: rows per tile, 64 per warpgroup
+K1_STAGES = 4               # bf16 K1: weight chunks in flight
+K1_CHUNK_K = 64             # bf16 K1: reduction columns per weight chunk
+K1_RAYS = 4                 # bf16 K1: rays of per-ray rows staged per tile
+K1_MAX_BANDS = 10           # bf16 K1: the encode's 3 F arguments fit 32
+                            # columns (sin at 0, cos at 32, x at 64)
 
 
 def tile_rows(elem: int) -> int:
@@ -77,8 +85,8 @@ def trunk_rows_smem(H: int, SC: int, F: int, elem: int) -> int:
 
 
 def trunk_fwd_plan(R: int, S: int, H: int, SC: int, F: int, elem: int) -> dict:
-    """K1 (and K2's recompute): one block per tile of consecutive sample
-    rows."""
+    """f32 K1 and K2's recompute chain (both elements): one block per tile
+    of consecutive sample rows."""
     if H % 32 or SC % 32:
         raise ValueError(f"the trunk kernels need hidden and code widths "
                          f"that are multiples of 32, got {H} and {SC}")
@@ -87,6 +95,79 @@ def trunk_fwd_plan(R: int, S: int, H: int, SC: int, F: int, elem: int) -> dict:
     _check_smem(f"K1 at h={H}, s={SC}, F={F}", smem)
     return {"tile_rows": tm, "smem": smem, "blocks": -(-R * S // tm),
             "kp": kp_of(F)}
+
+
+def k1_wgmma_width(n: int) -> int:
+    """The wgmma N that bf16 K1 runs a layer of output width n at: 128 or
+    256.  A narrower layer runs zero-padded to it: its weight images have
+    zero rows and columns there, so the padded activations are zero."""
+    return 128 if n <= 128 else 256
+
+
+def k1_chunks(H: int, SC: int) -> list:
+    """The weight chunks bf16 K1 streams for every tile, in the order the
+    chain reads them: (layer, byte offset in the packed image, bytes).  A
+    layer's image is its transposed weight [N, K], both padded to the
+    wgmma widths, cut into chunks of 64 reduction columns, each N rows of
+    128 bytes.  The first layer's K is the encode's 128 columns:
+    [w1s^T (32) | w1c^T (32) | w1x^T (16) | 0]."""
+    nh, ns = k1_wgmma_width(H), k1_wgmma_width(SC)
+    layers = (("w1", nh, 2 * K1_CHUNK_K), ("w2", nh, nh), ("wof", ns, nh),
+              ("wd", nh, ns), ("wd2", nh, nh))
+    out, off = [], 0
+    for name, n, k in layers:
+        for _ in range(k // K1_CHUNK_K):
+            out.append((name, off, n * 128))
+            off += n * 128
+    return out
+
+
+def k1_smem(H: int, SC: int) -> int:
+    """bf16 K1's shared memory, in the kernel's order: the weight ring,
+    one activation buffer per warpgroup (64 rows, K-major, 128-byte
+    swizzled; the encode and every layer's input in turn), the sigma and
+    rgb heads' images ([8, NH] each, in 1 KB chunks of 64 columns), each
+    warpgroup's 64 points (f32), b1 and bd2 (bf16 [NH] each), each
+    warpgroup's staged per-ray rows (zs1p, featp and dirp of ``K1_RAYS``
+    rays, bf16), the ring's full and empty mbarriers, and the slack that
+    aligns the ring to 1024 bytes."""
+    nh, ns = k1_wgmma_width(H), k1_wgmma_width(SC)
+    nm = max(nh, ns)
+    return (K1_STAGES * nm * 128 + 2 * 64 * nm * 2 + 2 * (nh // 64) * 1024
+            + 2 * 64 * 3 * 4 + 2 * nh * 2 + 2 * K1_RAYS * (2 * nh + ns) * 2
+            + 2 * K1_STAGES * 8 + 1024)
+
+
+def trunk_fwd_wgmma_plan(R: int, S: int, H: int, SC: int, F: int,
+                         n_sm: int) -> dict:
+    """bf16 K1: a persistent grid of at most one block per SM, each
+    walking a range of consecutive 128-row tiles (``even_ranges`` over the
+    tiles; block b owns rows [row_ranges[b])), with the weight chunks of
+    ``k1_chunks`` streamed through a ring of ``K1_STAGES`` stages."""
+    for name, n in (("hidden", H), ("code", SC)):
+        if n % 32 or not 32 <= n <= K1_MAX_WIDTH:
+            raise ValueError(
+                f"K1 in bfloat16 needs a {name} width that is a multiple of "
+                f"32 and at most {K1_MAX_WIDTH} (K1_MAX_WIDTH), got {n}")
+    if not 1 <= F <= K1_MAX_BANDS:
+        raise ValueError(f"K1 in bfloat16 encodes at most {K1_MAX_BANDS} "
+                         f"bands (K1_MAX_BANDS), got {F}")
+    if R < 0 or S < 1:
+        raise ValueError(f"K1 needs R >= 0 and S >= 1, got R={R}, S={S}")
+    smem = k1_smem(H, SC)
+    _check_smem(f"K1 at h={H}, s={SC}", smem)
+    chunks = k1_chunks(H, SC)
+    M = R * S
+    tiles = -(-M // K1_TILE)
+    grid = min(n_sm, tiles)
+    ranges = even_ranges(tiles, grid) if grid else []
+    return {"tile_rows": K1_TILE, "smem": smem, "grid": grid,
+            "tiles": tiles, "tile_ranges": ranges,
+            "row_ranges": [(t0 * K1_TILE, min(t1 * K1_TILE, M))
+                           for t0, t1 in ranges],
+            "nh": k1_wgmma_width(H), "ns": k1_wgmma_width(SC),
+            "chunks": chunks,
+            "image_bytes": chunks[-1][1] + chunks[-1][2]}
 
 
 def xtg_plan(products, elem: int, n_sm: int) -> dict:
