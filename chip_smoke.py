@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``codenerf_tpu_torch``).
 
-Drives the port's serving render and train step on one NVIDIA card at the
-flagship width of ``configs/srn-cars-code.yml`` (values from
-``SRN_CARS_CODE``, so no YAML is read) with random weights from a seed:
+Drives the port's serving render, train step and test-time optimization
+(TTO) on one NVIDIA card at the flagship width of
+``configs/srn-cars-code.yml`` (values from ``SRN_CARS_CODE``, so no YAML
+is read) with random weights from a seed:
 
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``), K2 / K3
@@ -48,8 +49,29 @@ flagship width of ``configs/srn-cars-code.yml`` (values from
                in fused and hybrid mode against the plain-version step
                (gradient relRMS gate 1e-4 per leaf, finite loss) and one
                step on the ray-structured path (finite loss).
-  7. result  — the kernel table as one JSON line, the card line, and the
-               last line ``{"ok": true, "device": {...}}``.
+  7. tto     — test-time optimization of codes and pose with the seeded
+               model frozen, from the mean codes of a 2458-object table
+               (the SRN cars train count), on 4 targets the model renders
+               at theta 1.2, phi linspace(-2, 2, 4), rho 1.3, from 1.57 /
+               0 / 1.30: in each train mode, (a) one batched step of 4 x
+               4096 rays with the kernels against the same step on the
+               plain versions (the loss within 1e-3, the z_s, z_t, theta,
+               phi and rho gradients at relRMS <= 1e-2; layer_bwd also
+               against xla), (b) 30 steps (ms per step, rays/s, TTO steps/s,
+               launches per step, the fine loss must fall, the mean pose
+               error), (c) fused, hybrid and layer_bwd profiles (K2 / K3
+               split into the row pass and the dW products nobody reads);
+               single TTO of 4096 rays (ms per step, a profile) and batched
+               K = 1
+               against it from one generator (rtol 2e-5 on the codes, 1e-5
+               on theta, the loss and the pose error); f32 fused and hybrid
+               steps against the plain versions (gate 1e-4); 5 multi-view
+               steps (2 objects x 2 views), then 5 SE(3) refine steps from
+               the fused run's state and 5 multi-view SE(3) refine steps
+               (xi starts at 0, every loss finite).
+  8. result  — the kernel table as one JSON line (with each kernel's
+               launches per TTO step), the card line, and the last line
+               ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
 raises and exits nonzero without the last line.  Imports only torch, numpy,
@@ -71,7 +93,12 @@ import torch
 
 from codenerf_tpu_torch.config import SRN_CARS_CODE, config_from_dict
 from codenerf_tpu_torch.core import mse2psnr, pixel_directions, pose_spherical
-from codenerf_tpu_torch.eval import make_image_renderer
+from codenerf_tpu_torch.eval import (
+    init_batched_tto_state, init_multiview_se3_refine_state,
+    init_multiview_tto_state, init_se3_refine_state, init_tto_state,
+    make_batched_tto_step, make_image_renderer,
+    make_multiview_se3_refine_step, make_multiview_tto_step,
+    make_se3_refine_step, make_tto_step)
 from codenerf_tpu_torch.models import CodeNeRF, CodeTables, lookup_codes
 from codenerf_tpu_torch.ops import _build, fused, layer_bwd
 from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
@@ -214,6 +241,24 @@ def profile_call(fn, args, unprofiled_ms, kernels: dict) -> dict:
                                      for k, v in kernel_ms.items()},
             "n_kernel_names": len(by_name),
             "top": [[k[:80], v] for k, v in top]}
+
+
+def profile_step(label, step, args, step_ms, labels, card) -> dict:
+    """``profile_call`` over one step, printed as the ``<label> profile``
+    line and a JSON line."""
+    prof = profile_call(step, args, step_ms, labels)
+    if prof["device_busy_ms"]:
+        print(f"{label} profile: device busy {prof['device_busy_ms']:.6g} ms "
+              f"per step against the unprofiled {step_ms:.6g} ms (idle share "
+              f"{prof['idle_share']:.4g}); kernel ms {prof['kernel_ms']}, "
+              f"share of busy {prof['kernel_share_of_busy']} on {card}",
+              flush=True)
+    else:
+        print(f"{label} profile: torch.profiler recorded no device time: "
+              f"the breakdown is not measured", flush=True)
+    print(json.dumps({f"{label.replace(' ', '_')}_profile": prof}),
+          flush=True)
+    return prof
 
 
 def trunk_forward_library(pts, per_ray, weights):
@@ -889,23 +934,9 @@ def train_phase(size, dirs, teacher, tables, card) -> dict:
 
         # (c) one step under torch.profiler
         if mode in PROFILE_LABELS:
-            labels = PROFILE_LABELS[mode]
-            prof = profile_call(step, (dirs, poses, pixels, ids, gen),
-                                step_ms, labels)
-            if prof["device_busy_ms"]:
-                print(f"train {mode} profile: device busy "
-                      f"{prof['device_busy_ms']:.6g} ms per step against "
-                      f"the unprofiled {step_ms:.6g} ms (idle share "
-                      f"{prof['idle_share']:.4g}); kernel ms "
-                      f"{prof['kernel_ms']}, share of busy "
-                      f"{prof['kernel_share_of_busy']} on {card}",
-                      flush=True)
-            else:
-                print(f"train {mode} profile: torch.profiler recorded no "
-                      f"device time: the breakdown is not measured",
-                      flush=True)
-            print(json.dumps({f"train_{mode}_profile": prof}), flush=True)
-            row["profile"] = prof
+            row["profile"] = profile_step(
+                f"train {mode}", step, (dirs, poses, pixels, ids, gen),
+                step_ms, PROFILE_LABELS[mode], card)
         del student, step
         torch.cuda.empty_cache()
 
@@ -969,6 +1000,297 @@ def train_phase(size, dirs, teacher, tables, card) -> dict:
                       "launches": launched}
     del st
     torch.cuda.empty_cache()
+    return results
+
+
+TTO_STEPS = 30
+TTO_OBJECTS = 4
+# the SRN cars train split's object count (bench.py's code table), so TTO
+# starts from the mean codes of a real-sized table
+SRN_CARS_TRAIN_OBJECTS = 2458
+TTO_KEYS = ("z_s", "z_t", "theta", "phi", "rho")
+# multi-view and SE(3) refine: objects, views and steps
+MV_OBJECTS, MV_VIEWS, REFINE_STEPS = 2, 2, 5
+
+
+def finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def timed_steps(step, state, args, n) -> tuple:
+    """``n`` TTO steps from ``state``: (state, ms per step, metrics)."""
+    ms, metrics = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    return state, ms, metrics
+
+
+def tto_phase(size, dirs, models, card) -> dict:
+    """Test-time optimization on the card (phase 7): batched TTO of
+    ``TTO_OBJECTS`` targets in each mode of ``TRAIN_MODES``, single TTO
+    and K = 1 against it, f32 fused and hybrid steps, multi-view TTO and
+    the SE(3) refine stages, all with the frozen seeded ``models``."""
+    cfg, k1_settings = mode_config(TRAIN_MODES["fused"][0])
+    n_rays = cfg.nerf.ray_sampler.num_random_rays
+    lam = cfg.experiment.regularizer_lambda
+    perturb = cfg.nerf.point_sampler.perturb
+    opt_cfg = cfg.optimizer
+    emb = cfg.models.embedding
+    K = TTO_OBJECTS
+    tables = CodeTables(SRN_CARS_TRAIN_OBJECTS, emb.shape_code_size,
+                        emb.texture_code_size, "cuda",
+                        torch.Generator(device="cpu").manual_seed(SEED + 9))
+    phis = torch.linspace(-2.0, 2.0, K, device="cuda")
+    poses = pose_spherical(torch.full_like(phis, 1.2), phis, 1.3)
+    render = make_image_renderer(k1_settings, size, size,
+                                 cfg.nerf.validation.chunksize, "cuda")
+
+    def targets_of(ids):
+        return torch.stack([render(models, dirs, poses[i],
+                                   *lookup_codes(tables, ids[i:i + 1]))
+                            .reshape(size, size, 3) for i in range(K)])
+
+    with torch.no_grad():
+        targets = targets_of(torch.arange(K, device="cuda"))
+        # multi-view: objects 0 and 1, two views each, at the same poses
+        mv_targets = targets_of(torch.tensor([0, 0, 1, 1], device="cuda")
+                                ).reshape(MV_OBJECTS, MV_VIEWS, size, size, 3)
+    mv_poses = poses.reshape(MV_OBJECTS, MV_VIEWS, 4, 4)
+    print(f"tto: {K} targets of {size}x{size} rendered from table codes at "
+          f"theta 1.2, phi {[round(float(p), 4) for p in phis]}, rho 1.3; "
+          f"codes from the mean of a {SRN_CARS_TRAIN_OBJECTS}-object table; "
+          f"{K} x {n_rays} rays a step, {opt_cfg.resolved_val_type} "
+          f"val_lr {opt_cfg.val_lr}, regularizer {lam}, perturb {perturb}",
+          flush=True)
+    args = (models, dirs, targets, poses)
+
+    def one_step(settings, mods, plain=False):
+        """One batched step from the initial state: (state, grads, loss
+        [K], launches)."""
+        st, opt = init_batched_tto_state(tables, opt_cfg, K)
+        step = make_batched_tto_step(settings, opt, n_rays, lam, perturb)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+        before = launch_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            st, m = step(st, mods, dirs, targets, poses, gen)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        grads = {k: st.variables[k].grad.detach().clone() for k in TTO_KEYS}
+        return st, grads, m.loss.detach().clone(), launched
+
+    def check_against_plain(label, settings, mods, want_launches, gate):
+        st, grads, loss, launched = one_step(settings, mods)
+        _, p_grads, p_loss, p_launched = one_step(settings, mods, True)
+        if launched != want_launches or any(p_launched.values()):
+            raise RuntimeError(f"{label}: launched {launched} (plain "
+                               f"{p_launched}), expected {want_launches}")
+        rel = grad_rel_rms(grads, p_grads)
+        worst = max(rel, key=rel.get)
+        loss_rel = float((loss - p_loss).abs().max() / p_loss.abs().min())
+        print(f"{label}: {K * n_rays} rays: loss kernels "
+              f"{[round(float(v), 8) for v in loss]} plain "
+              f"{[round(float(v), 8) for v in p_loss]}; gradient relRMS "
+              + ", ".join(f"{k} {v:.4g}" for k, v in rel.items())
+              + f" (worst {worst}); launches {launched}", flush=True)
+        if not rel[worst] <= gate:
+            raise RuntimeError(f"{label}: {worst} gradient relRMS "
+                               f"{rel[worst]} > {gate}")
+        if not loss_rel <= gate / 10:
+            raise RuntimeError(f"{label}: loss {loss.tolist()} vs plain "
+                               f"{p_loss.tolist()}")
+        return st, grads, {"grad_rel_rms": rel, "worst": [worst, rel[worst]],
+                           "loss_rel": loss_rel}
+
+    results = {}
+    xla_grads = fused_state = None
+    for mode, (flags, want_launches) in TRAIN_MODES.items():
+        _, settings = mode_config(flags)
+        torch.cuda.reset_peak_memory_stats()
+        # (a) one step with the kernels against the same step on the plain
+        # versions, from the same state and generator seed
+        if any(want_launches.values()):
+            st, grads, row = check_against_plain(
+                f"tto {mode} (a)", settings, models, want_launches,
+                REL_RMS_GATE)
+        else:
+            st, grads, loss, launched = one_step(settings, models)
+            if any(launched.values()):
+                raise RuntimeError(f"tto {mode} (a): launched {launched}")
+            row = {"loss": loss.tolist()}
+        row["path"] = trunk_path(settings)
+        if mode == "xla":
+            xla_grads = grads
+        if mode == "layer_bwd":
+            rel = grad_rel_rms(grads, xla_grads)
+            worst = max(rel, key=rel.get)
+            print(f"tto layer_bwd (a) vs xla: gradient relRMS worst {worst} "
+                  f"{rel[worst]:.4g}", flush=True)
+            if not rel[worst] <= REL_RMS_GATE:
+                raise RuntimeError(f"tto layer_bwd vs xla: {worst} gradient "
+                                   f"relRMS {rel[worst]} > {REL_RMS_GATE}")
+            row["grad_rel_rms_worst_vs_xla"] = [worst, rel[worst]]
+        del grads
+
+        # (b) TTO_STEPS steps on from the state of (a)
+        step = make_batched_tto_step(settings, st.optimizer, n_rays, lam,
+                                     perturb)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        st, ms, mets = timed_steps(step, st, (*args, gen), TTO_STEPS)
+        counts = launch_counts()
+        fine = [float(m.loss_fine.mean()) for m in mets]
+        total = [float(m.loss.mean()) for m in mets]
+        perr = [float(m.pose_error.mean()) for m in mets]
+        step_ms = statistics.median(ms)
+        per_step = {k: v / TTO_STEPS for k, v in counts.items()}
+        print(f"tto {mode} (b): {TTO_STEPS} batched steps of {K} x {n_rays} "
+              f"rays: median {step_ms:.6g} ms/step "
+              f"({K * n_rays / step_ms * 1e3:.6g} rays/s, "
+              f"{1e3 / step_ms:.6g} TTO steps/s, "
+              f"{K * 1e3 / step_ms:.6g} objects x steps/s), first "
+              f"{ms[0]:.6g} ms; launches per step {per_step}; fine loss "
+              f"{fine[0]:.6g} -> {fine[-1]:.6g} (loss {total[0]:.6g} -> "
+              f"{total[-1]:.6g}); mean pose error {perr[0]:.6g} -> "
+              f"{perr[-1]:.6g}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3g} GiB on "
+              f"{card}", flush=True)
+        if per_step != want_launches:
+            raise RuntimeError(f"tto {mode}: launches per step {per_step}, "
+                               f"expected {want_launches}")
+        if not finite(total + perr):
+            raise RuntimeError(f"tto {mode}: a loss or pose error is not "
+                               f"finite")
+        first, last = statistics.mean(fine[:10]), statistics.mean(fine[-10:])
+        if not last < first:
+            raise RuntimeError(f"tto {mode}: the fine loss did not fall "
+                               f"({first} -> {last})")
+        row.update({"step_ms": step_ms, "step_ms_all": ms,
+                    "rays_per_s": K * n_rays / step_ms * 1e3,
+                    "steps_per_s": 1e3 / step_ms,
+                    "object_steps_per_s": K * 1e3 / step_ms,
+                    "launches": counts, "launches_per_step": per_step,
+                    "loss_fine": fine, "loss": total,
+                    "pose_error_first_last": [perr[0], perr[-1]],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+        # (c) one step under torch.profiler
+        if mode in PROFILE_LABELS:
+            row["profile"] = profile_step(
+                f"tto {mode}", step, (st, *args, gen), step_ms,
+                PROFILE_LABELS[mode], card)
+        results[mode] = row
+        if mode == "fused":
+            fused_state = st
+        del st, step
+        torch.cuda.empty_cache()
+
+    # single TTO at n_rays rays, fused mode; then K = 1 batched against it
+    single, opt = init_tto_state(tables, opt_cfg)
+    step1 = make_tto_step(k1_settings, opt, n_rays, lam, perturb)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    one = (models, dirs, targets[0], poses[0], gen)
+    single, ms, mets = timed_steps(step1, single, one, 12)
+    single_ms = statistics.median(ms[2:])
+    if not finite([float(m.loss) for m in mets]):
+        raise RuntimeError("tto single: a loss is not finite")
+    single_prof = profile_step("tto single", step1, (single, *one),
+                               single_ms, PROFILE_LABELS["fused"], card)
+    runs = {}
+    for kind in ("single", "batched"):
+        if kind == "single":
+            st, opt = init_tto_state(tables, opt_cfg)
+            step = make_tto_step(k1_settings, opt, n_rays, lam, perturb)
+            data = (targets[0], poses[0])
+        else:
+            st, opt = init_batched_tto_state(tables, opt_cfg, 1)
+            step = make_batched_tto_step(k1_settings, opt, n_rays, lam,
+                                         perturb)
+            data = (targets[:1], poses[:1])
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        st, _, mets = timed_steps(step, st, (models, dirs, *data, gen), 3)
+        runs[kind] = ({k: v.detach() for k, v in st.variables.items()},
+                      mets[-1])
+    (vs, ms_), (vb, mb) = runs["single"], runs["batched"]
+    # (largest difference, its tolerance) of each quantity
+    k1_diff = {
+        "z_s": (float((vb["z_s"][0] - vs["z_s"][0]).abs().max()),
+                float(2e-5 * vs["z_s"][0].abs().max() + 1e-7)),
+        "theta": (abs(float(vb["theta"][0] - vs["theta"][0])),
+                  1e-5 * abs(float(vs["theta"][0]))),
+        "loss": (abs(float(mb.loss[0]) - float(ms_.loss)),
+                 1e-5 * abs(float(ms_.loss))),
+        "pose_error": (abs(float(mb.pose_error[0]) - float(ms_.pose_error)),
+                       1e-5 * abs(float(ms_.pose_error))),
+    }
+    z_ok = bool(((vb["z_s"][0] - vs["z_s"][0]).abs()
+                 <= 2e-5 * vs["z_s"][0].abs() + 1e-7).all())
+    print(f"tto single: {n_rays} rays, fused: median {single_ms:.6g} ms/step "
+          f"({n_rays / single_ms * 1e3:.6g} rays/s, {1e3 / single_ms:.6g} "
+          f"steps/s) on {card}; batched K=1 vs single after 3 steps from one "
+          f"generator, (difference, tolerance): {k1_diff}", flush=True)
+    if not (z_ok and all(d <= tol for k, (d, tol) in k1_diff.items()
+                         if k != "z_s")):
+        raise RuntimeError(f"tto batched K=1 differs from single: {k1_diff}")
+    results["single"] = {"step_ms": single_ms, "step_ms_all": ms,
+                         "rays_per_s": n_rays / single_ms * 1e3,
+                         "k1_vs_single": k1_diff,
+                         "profile": single_prof}
+    del single, runs, vs, vb
+    torch.cuda.empty_cache()
+
+    # f32: one fused and one hybrid batched step against the plain versions
+    for mode in ("fused", "hybrid"):
+        flags, want_launches = TRAIN_MODES[mode]
+        _, s32 = mode_config({**flags, "compute_dtype": "float32"})
+        models32 = {}
+        for k, m in models.items():
+            models32[k] = CodeNeRF(getattr(s32, f"{k}_cfg"), "cuda")
+            models32[k].load_state_dict(m.state_dict())
+        _, _, row = check_against_plain(f"tto f32 {mode}", s32, models32,
+                                        want_launches, F32_REL_RMS_GATE)
+        results[f"f32_{mode}"] = row
+        del models32
+        torch.cuda.empty_cache()
+
+    # multi-view, then the SE(3) refine stages, fused mode
+    mv, opt = init_multiview_tto_state(tables, opt_cfg, MV_OBJECTS, MV_VIEWS)
+    step = make_multiview_tto_step(k1_settings, opt, n_rays, lam, perturb)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    mv, mv_ms, mets = timed_steps(step, mv, (models, dirs, mv_targets,
+                                             mv_poses, gen), REFINE_STEPS)
+    stages = {"multiview": (mv_ms, mets, MV_OBJECTS * MV_VIEWS * n_rays)}
+    for kind, start, init, make, data in (
+            ("se3_refine", fused_state, init_se3_refine_state,
+             make_se3_refine_step, (targets, poses)),
+            ("multiview_se3_refine", mv, init_multiview_se3_refine_state,
+             make_multiview_se3_refine_step, (mv_targets, mv_poses))):
+        ref, opt, base = init(start, opt_cfg)
+        if float(ref.variables["xi"].detach().abs().max()) != 0.0:
+            raise RuntimeError(f"tto {kind}: xi does not start at 0")
+        step = make(k1_settings, opt, n_rays, lam, perturb)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        _, ms, mets = timed_steps(step, ref, (models, dirs, data[0], base,
+                                              data[1], gen), REFINE_STEPS)
+        stages[kind] = (ms, mets, base.shape[:-2].numel() * n_rays)
+    for kind, (ms, mets, rays) in stages.items():
+        losses = [m.loss.tolist() for m in mets]
+        perr = [float(m.pose_error.mean()) for m in mets]
+        med = statistics.median(ms)
+        print(f"tto {kind}: {REFINE_STEPS} steps of {rays} rays, fused: "
+              f"median {med:.6g} ms/step ({rays / med * 1e3:.6g} rays/s); "
+              f"mean loss {statistics.mean(losses[0]):.6g} -> "
+              f"{statistics.mean(losses[-1]):.6g}; mean pose error "
+              f"{perr[0]:.6g} -> {perr[-1]:.6g} on {card}", flush=True)
+        if not finite([v for row in losses for v in row] + perr):
+            raise RuntimeError(f"tto {kind}: a loss is not finite")
+        results[kind] = {"step_ms": med, "step_ms_all": ms, "loss": losses,
+                         "rays_per_step": rays,
+                         "pose_error_first_last": [perr[0], perr[-1]]}
     return results
 
 
@@ -1161,6 +1483,10 @@ def main():
     train = train_phase(size, dirs, models, tables, card)
     phase("train", t0)
 
+    t0 = time.perf_counter()
+    tto = tto_phase(size, dirs, models, card)
+    phase("tto", t0)
+
     # one image runs each S once per chunk at R = chunk; one train step
     # runs each S once at R = n_step
     def per_call(R):
@@ -1199,6 +1525,8 @@ def main():
         "per": f"one {size}x{size} image: {n_chunks} launches at each S of "
                f"{sorted({s['S'] for s in k1['shapes']})}, R={chunk}",
         "launches_per_train_step": train["fused"]["launches_per_step"]["K1"],
+        "tto_launches": tto["fused"]["launches"]["K1"],
+        "launches_per_tto_step": tto["fused"]["launches_per_step"]["K1"],
         "train_step_ms": step_k1["ms"],
         "train_step_wrapper_ms": step_k1["wrapper_ms"],
         "train_step_plain_ms": step_k1["plain_ms"],
@@ -1218,6 +1546,8 @@ def main():
             "replaces": "codenerf_tpu/ops/fused.py:183",
             "launches": train[mode]["launches"][name],
             "launches_per_train_step": train[mode]["launches_per_step"][name],
+            "tto_launches": tto[mode]["launches"][name],
+            "launches_per_tto_step": tto[mode]["launches_per_step"][name],
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
             "rel_rms": max(r["rel_rms"] for r in bwd[name]),
             "ms": sum(r["ms"] for r in rows),
@@ -1252,6 +1582,8 @@ def main():
         "launches": train["layer_bwd"]["launches"]["K4"],
         "launches_per_train_step":
             train["layer_bwd"]["launches_per_step"]["K4"],
+        "tto_launches": tto["layer_bwd"]["launches"]["K4"],
+        "launches_per_tto_step": tto["layer_bwd"]["launches_per_step"]["K4"],
         "max_abs_err": max(r["max_abs_err"] for r in k4),
         "rel_rms": max(r["rel_rms"] for r in k4),
         "ms": sum(n * r["ms"] for r, n in step_rows),
@@ -1267,9 +1599,10 @@ def main():
                f"at R={n_step}; launches counted over {TRAIN_STEPS} steps",
         "shapes": k4,
     })
-    print(json.dumps({"train": {m: {k: v for k, v in r.items()
-                                    if k != "profile"}
-                                for m, r in train.items()}}), flush=True)
+    for name, results in (("train", train), ("tto", tto)):
+        print(json.dumps({name: {m: {k: v for k, v in r.items()
+                                     if k != "profile"}
+                                 for m, r in results.items()}}), flush=True)
     print(f"wall: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

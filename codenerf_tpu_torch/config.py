@@ -1,4 +1,5 @@
-"""The configuration fields the serving render and the train step read.
+"""The configuration fields the serving render, the train step and TTO
+read.
 
 A trimmed copy of ``codenerf_tpu/config/schema.py`` for the modern YAML
 layout (``configs/srn-cars-code.yml``): the same nested names, so
@@ -51,12 +52,32 @@ class OptimizerConfig:
     lr: float = 1e-4
     # None -> falls back to `lr`
     embedding_lr: Optional[float] = None
+    # test-time optimization (eval/tto.py): None -> `type`
+    val_type: Optional[str] = None
+    val_lr: float = 5e-3
+    # None -> `val_lr`
+    angle_lr: Optional[float] = None
+    radius_lr: Optional[float] = None
     scheduler_gamma: float = 0.1
     scheduler_step_size: int = 5000000
+    # the SE(3)-tangent pose refinement after spherical TTO
+    se3_refine_lr: float = 1e-3
 
     @property
     def resolved_embedding_lr(self) -> float:
         return self.lr if self.embedding_lr is None else self.embedding_lr
+
+    @property
+    def resolved_val_type(self) -> str:
+        return self.type if self.val_type is None else self.val_type
+
+    @property
+    def resolved_angle_lr(self) -> float:
+        return self.val_lr if self.angle_lr is None else self.angle_lr
+
+    @property
+    def resolved_radius_lr(self) -> float:
+        return self.val_lr if self.radius_lr is None else self.radius_lr
 
 
 @dataclass(frozen=True)
@@ -73,6 +94,8 @@ class PointSamplerConfig:
     # the reference's labels are inverted vs the NeRF convention:
     # "lindepth" is linear in disparity (see ops/sampling.py)
     spacing_mode: str = "lindepth"
+    # stratified jitter and random inverse-CDF u (train and TTO renders)
+    perturb: bool = True
 
 
 @dataclass(frozen=True)
@@ -142,8 +165,8 @@ class Config:
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
 
-# The render- and train-relevant values of configs/srn-cars-code.yml, in
-# its layout.
+# The render-, train- and TTO-relevant values of configs/srn-cars-code.yml,
+# in its layout.
 SRN_CARS_CODE = {
     "experiment": {"regularizer_lambda": 1e-05},
     "dataset": {"image_size": 128, "train_batch_size": 4},
@@ -153,12 +176,14 @@ SRN_CARS_CODE = {
         "embedding": {"shape_code_size": 256, "texture_code_size": 256},
     },
     "optimizer": {"type": "AdamW", "lr": 0.0001, "embedding_lr": 0.001,
-                  "scheduler_gamma": 0.1, "scheduler_step_size": 5000000},
+                  "val_type": "AdamW", "val_lr": 0.005, "angle_lr": None,
+                  "radius_lr": None, "scheduler_gamma": 0.1,
+                  "scheduler_step_size": 5000000},
     "nerf": {
         "ray_sampler": {"num_random_rays": 4096},
         "point_sampler": {"num_coarse": 32, "num_fine": 128,
                           "near_limit": 0.8, "far_limit": 1.8,
-                          "spacing_mode": "lindepth"},
+                          "spacing_mode": "lindepth", "perturb": True},
         "embedder": {"num_encoding_fn_xyz": 10, "include_input_xyz": True,
                      "log_sampling_xyz": True, "use_viewdirs": True,
                      "num_encoding_fn_dir": 4, "include_input_dir": True,

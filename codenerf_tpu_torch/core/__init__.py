@@ -1,5 +1,5 @@
-"""Encoding, camera geometry and image metrics (counterpart of
-``codenerf_tpu/core``)."""
+"""Encoding, camera geometry, image metrics and the SO(3) / SE(3) maps of
+``core.lie`` (counterpart of ``codenerf_tpu/core``)."""
 
 from codenerf_tpu_torch.core.encoding import (  # noqa: F401
     frequency_bands, positional_encoding, encoding_dim)

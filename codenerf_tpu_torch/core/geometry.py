@@ -32,18 +32,24 @@ def ray_bundle(directions: torch.Tensor, pose_c2w: torch.Tensor):
 
 def pose_spherical(theta, phi, rho, dtype=torch.float32,
                    device=None) -> torch.Tensor:
-    """Camera-to-world pose [4, 4] on a sphere looking at the origin, in
-    the reference's matrix layout (eval.py:33-38)."""
-    kw = dict(dtype=dtype, device=device)
-    theta, phi, rho = (torch.as_tensor(v, **kw).reshape(())
-                       for v in (theta, phi, rho))
+    """Camera-to-world poses on a sphere looking at the origin, in the
+    reference's matrix layout (eval.py:33-38), differentiable in theta,
+    phi and rho.  Scalars give [4, 4]; tensors broadcast to one leading
+    shape [...] and give [..., 4, 4] (JAX ``vmap(pose_spherical)``).
+    ``device`` defaults to the first tensor argument's."""
+    if device is None:
+        device = next((v.device for v in (theta, phi, rho)
+                       if torch.is_tensor(v)), None)
+    theta, phi, rho = torch.broadcast_tensors(*(
+        torch.as_tensor(v, dtype=dtype, device=device)
+        for v in (theta, phi, rho)))
     st, ct = torch.sin(theta), torch.cos(theta)
     sp, cp = torch.sin(phi), torch.cos(phi)
     zero, one = torch.zeros_like(st), torch.ones_like(st)
-    c0 = torch.stack([-sp, cp, zero, zero])
-    c1 = torch.stack([-st * cp, -st * sp, ct, zero])
-    c2 = torch.stack([ct * cp, ct * sp, st, zero])
-    c3 = torch.stack([rho * ct * cp, rho * ct * sp, rho * st, one])
+    c0 = torch.stack([-sp, cp, zero, zero], dim=-1)
+    c1 = torch.stack([-st * cp, -st * sp, ct, zero], dim=-1)
+    c2 = torch.stack([ct * cp, ct * sp, st, zero], dim=-1)
+    c3 = torch.stack([rho * ct * cp, rho * ct * sp, rho * st, one], dim=-1)
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 

@@ -206,7 +206,7 @@ def apply_codenerf_rays(model: CodeNeRF, xyz_enc, dir_enc, z_s, z_t,
     dar = (_DotAddReluPL if cfg.pallas_layer_bwd else _DotAddRelu).apply
 
     # layer_xyz1 stays on _DotAddRelu under pallas_layer_bwd too, as in
-    # JAX: its dx is never needed in training
+    # JAX; its dx carries the pose gradient back to the samples in TTO
     x = _lin_relu(model.layer_xyz1, xyz_enc, cd)
     x = dar(x, w2_top, zs1_part[:, None, :], cd)
     if cfg.pallas_layer_bwd or cfg.split_fc_out:

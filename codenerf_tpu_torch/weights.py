@@ -4,7 +4,9 @@ dicts.
 The inputs are numpy views of the JAX pytrees (``{layer: {"w", "b"}}``
 with ``w`` as ``[in, out]``, and ``{"shape", "texture"}`` code tables);
 nothing here imports JAX.  The outputs use the reference state-dict
-names, as ``codenerf_tpu/train/torch_import.py`` writes them.
+names, as ``codenerf_tpu/train/torch_import.py`` writes them.  TTO
+variables ({"z_s", "z_t", "theta", "phi", "rho"} or {"z_s", "z_t",
+"xi"}) carry over as leaf tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from codenerf_tpu_torch.device import resolve_device
 from codenerf_tpu_torch.models.mlp import LAYER_NAMES
 
 
@@ -49,3 +52,14 @@ def params_from_jax(state, params_np: dict) -> None:
     state.tables.load_state_dict(
         {k: v.to(dev) for k, v in codes_from_jax(params_np["codes"]).items()},
         strict=True)
+
+
+def tto_variables_from_jax(variables_np: dict, device="cuda") -> dict:
+    """A JAX TTO ``variables`` dict (numpy views) -> the port's TTO
+    variables: f32 leaf tensors on ``device`` that require grad, ready
+    for ``train.optim.build_tto_optimizer`` or
+    ``build_se3_refine_optimizer``."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=dev,
+                            requires_grad=True)
+            for k, v in variables_np.items()}

@@ -46,6 +46,10 @@ cfg = config_from_dict(SRN_CARS_CODE)
 s = RenderSettings.from_config(cfg)
 assert s.fine_cfg.hidden_size == 256 and s.num_fine == 128
 assert "codenerf_tpu_torch.train.step" in names
+assert {"codenerf_tpu_torch.eval.tto", "codenerf_tpu_torch.core.lie"} <= set(
+    names)
+assert cfg.optimizer.resolved_val_type == "AdamW"
+assert cfg.optimizer.val_lr == 0.005 and cfg.nerf.point_sampler.perturb
 assert cfg.nerf.ray_sampler.num_random_rays == 4096
 assert cfg.dataset.train_batch_size == 4 and cfg.optimizer.type == "AdamW"
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -86,10 +90,19 @@ def test_srn_cars_code_literal_matches_the_yaml():
     yml = ROOT / "configs" / "srn-cars-code.yml"
     jcfg = jax_load_config(yml)
     pcfg = config_from_dict(SRN_CARS_CODE)
+    paths = set()
     for path, value in _leaves(SRN_CARS_CODE):
         assert _get(jcfg, path) == value, ".".join(path)
         assert _get(pcfg, path) == value, ".".join(path)
+        paths.add(".".join(path))
     assert load_config(yml) == pcfg
+    # the TTO fields and the jitter switch are part of the literal
+    assert {"optimizer.val_type", "optimizer.val_lr", "optimizer.angle_lr",
+            "optimizer.radius_lr", "nerf.point_sampler.perturb"} <= paths
+    for name in ("resolved_val_type", "resolved_angle_lr",
+                 "resolved_radius_lr"):
+        assert getattr(pcfg.optimizer, name) == getattr(jcfg.optimizer,
+                                                        name), name
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
