@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``codenerf_tpu_torch``).
 
-Drives the port's serving render, train step and test-time optimization
-(TTO) on one NVIDIA card at the flagship width of
-``configs/srn-cars-code.yml`` (values from ``SRN_CARS_CODE``, so no YAML
-is read) with random weights from a seed:
+Drives the port's serving render, train step, test-time optimization
+(TTO) and train entry point on one NVIDIA card at the flagship width of
+``configs/srn-cars-code.yml`` (values from ``SRN_CARS_CODE``; the cli
+phase reads the file itself) with random weights from a seed:
 
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``), K2 / K3
@@ -69,9 +69,27 @@ is read) with random weights from a seed:
                steps (2 objects x 2 views), then 5 SE(3) refine steps from
                the fused run's state and 5 multi-view SE(3) refine steps
                (xi starts at 0, every loss finite).
-  8. result  — the kernel table as one JSON line (with each kernel's
-               launches per TTO step), the card line, and the last line
-               ``{"ok": true, "device": {...}}``.
+  8. cli     — the train entry point: an SRN-layout tree (8 train
+               objects x 5 views, 2 val x 6, 128x128) the seeded teacher
+               renders through K1, written as PNGs by a zlib writer here
+               that filters rows as adaptive encoders do (mostly Paeth
+               and Up) and read back equal, and timed, by
+               ``data.png.read_png``; leg 1
+               ``train.loop.run_training`` of ``configs/srn-cars-code.yml``
+               (read by ``yaml_lite``: no PyYAML here) at its full widths
+               for 10 steps with ``runtime.use_pallas`` and
+               ``pallas_backward`` (K1 and K2 launched in training and in
+               the validation at step 5, counted apart); the step-10
+               checkpoint restored into a fresh state A, saved and
+               restored into B: every tensor bit-identical, the LRs at
+               ``lr_at_step(10)``, one more step from each bit-identical;
+               leg 2 ``python3 -m codenerf_tpu_torch.train_cli`` resumes it
+               to step 20 (exit 0, no yaml / imageio import, its
+               ``config.yml`` read back by ``yaml_lite``); ms per step from
+               the logged ``time_taken``, validation ms, PSNR and SSIM.
+  9. result  — the kernel table as one JSON line (with each kernel's
+               launches per TTO step and in the cli legs), the card line,
+               and the last line ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
 raises and exits nonzero without the last line.  Imports only torch, numpy,
@@ -84,14 +102,23 @@ import contextlib
 import copy
 import dataclasses
 import json
+import shutil
 import statistics
+import struct
 import subprocess
+import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import numpy as np
 import torch
 
-from codenerf_tpu_torch.config import SRN_CARS_CODE, config_from_dict
+from codenerf_tpu_torch.config import (SRN_CARS_CODE, config_from_dict,
+                                       load_config, yaml_lite)
+from codenerf_tpu_torch.data import BatchIterator, SRNDataset, read_png
 from codenerf_tpu_torch.core import mse2psnr, pixel_directions, pose_spherical
 from codenerf_tpu_torch.eval import (
     init_batched_tto_state, init_multiview_se3_refine_state,
@@ -110,9 +137,14 @@ from codenerf_tpu_torch.ops.layer_bwd import (linear_relu_bwd,
                                               linear_relu_bwd_plain)
 from codenerf_tpu_torch.core.encoding import positional_encoding
 from codenerf_tpu_torch.pipeline import RenderSettings, trunk_path
-from codenerf_tpu_torch.train import init_train_state, make_train_step
+from codenerf_tpu_torch.train import (checkpoint, init_train_state,
+                                      lr_at_step, make_train_step)
+from codenerf_tpu_torch.train import loop
+from codenerf_tpu_torch.harness import Harness
+from codenerf_tpu_torch.utils.logging import MetricLogger
 
 SEED = 0
+ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside them, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -1294,6 +1326,367 @@ def tto_phase(size, dirs, models, card) -> dict:
     return results
 
 
+# the cli phase: an SRN-layout tree the seeded teacher renders through K1
+CLI_SPLITS = (("train", 8, 5), ("val", 2, 6))      # objects, views
+CLI_STEPS = 10
+CLI_YAML = "configs/srn-cars-code.yml"
+# ``python3 -m codenerf_tpu_torch.train_cli`` with yaml and imageio
+# unimportable (None in sys.modules); its last line lists the modules of
+# yaml, imageio, jax or codenerf_tpu that were loaded
+REFUSED = ("yaml", "imageio", "jax", "codenerf_tpu")
+CLI_RUNNER = ("import json, runpy, sys; "
+              "sys.modules.update(dict.fromkeys(('yaml', 'imageio'))); "
+              "runpy.run_module('codenerf_tpu_torch.train_cli', "
+              "run_name='__main__', alter_sys=True); "
+              "print('loaded ' + json.dumps(sorted("
+              "m for m, v in sys.modules.items() if v is not None and "
+              f"m.split('.')[0] in {REFUSED!r})))")
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+OPENGL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
+
+
+def png_bytes(img: np.ndarray) -> tuple:
+    """uint8 [H, W, 3] as an RGB PNG, written with the standard library's
+    zlib, and the filter of each row.  Rows are filtered as an adaptive
+    encoder (libpng's, PIL's) filters them: each takes the one of the five
+    filters whose bytes, read as signed, have the least sum of absolute
+    values."""
+    h, w, c = img.shape
+    x = img.astype(np.int16).reshape(h, w * c)
+    a = np.pad(x, ((0, 0), (c, 0)))[:, :-c]               # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]                  # up
+    ul = np.pad(b, ((0, 0), (c, 0)))[:, :-c]              # up-left
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a,
+                     np.where(pb <= pc, b, ul))
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    filtered = ((x - pred) % 256).astype(np.uint8)        # [5, h, w * c]
+    cost = np.abs(filtered.view(np.int8).astype(np.int32)).sum(-1)
+    kinds = cost.argmin(0)
+    rows = np.concatenate([kinds[:, None].astype(np.uint8),
+                           filtered[kinds, np.arange(h)]], 1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b"")), kinds
+
+
+def make_srn_tree(root: Path, size, dirs, teacher, tables) -> dict:
+    """The layout of ``tools/make_synth_data.py``: ``<root>/cars_<stage>/
+    obj<k>/{intrinsics.txt, pose/*.txt, rgb/*.png}``, each view rendered
+    through K1 by ``teacher`` with its object's codes (train objects take
+    rows 0-7 of ``tables``, val objects 8-9) from a spherical pose, the
+    pose stored before the loader's OpenGL flip.  Every PNG is read back
+    with ``read_png`` and must equal the bytes written.  Returns the
+    number of images, the rows of each filter and the ms of each
+    ``read_png``."""
+    _, k1_settings = mode_config(TRAIN_MODES["fused"][0])
+    render = make_image_renderer(k1_settings, size, size, 4096, "cuda")
+    rng = np.random.default_rng(SEED + 12)
+    row, n_images = 0, 0
+    filters, decode_ms = np.zeros(5, np.int64), []
+    for stage, n_obj, n_views in CLI_SPLITS:
+        for o in range(n_obj):
+            d = root / f"cars_{stage}" / f"obj{o:03d}"
+            (d / "rgb").mkdir(parents=True)
+            (d / "pose").mkdir()
+            (d / "intrinsics.txt").write_text(
+                f"{SRN_FOCAL_128} {size / 2} {size / 2} 0.\n0. 0. 0.\n1.\n"
+                f"{size} {size}\n")
+            codes = lookup_codes(tables, torch.tensor([row], device="cuda"))
+            row += 1
+            for v in range(n_views):
+                theta = (rng.uniform(0.45, 1.95) if stage == "train"
+                         else rng.uniform(0.95, 1.45))
+                pose = pose_spherical(theta, rng.uniform(0.0, 2 * np.pi),
+                                      1.3, device="cuda")
+                with torch.no_grad():
+                    img = render(teacher, dirs, pose, *codes)
+                u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8).reshape(
+                    size, size, 3).cpu().numpy()
+                path = d / "rgb" / f"{v:06d}.png"
+                data, kinds = png_bytes(u8)
+                path.write_bytes(data)
+                filters += np.bincount(kinds, minlength=5)
+                t_read = time.perf_counter()
+                back = read_png(path)
+                decode_ms.append((time.perf_counter() - t_read) * 1e3)
+                if not np.array_equal(back, u8):
+                    raise RuntimeError(f"read_png({path}) differs from the "
+                                       "pixels written")
+                np.savetxt(d / "pose" / f"{v:06d}.txt",
+                           (pose.double().cpu().numpy()
+                            @ OPENGL_FLIP).reshape(1, 16))
+                n_images += 1
+    return {"images": n_images, "filters": filters.tolist(),
+            "decode_ms": decode_ms}
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state by name (optimizer moments and steps
+    under their parameter's name), the LRs and the steps."""
+    params = {f"{k}.{n}": p for k, m in
+              {**state.models, "tables": state.tables}.items()
+              for n, p in m.named_parameters()}
+    out = {n: p.detach() for n, p in params.items()}
+    names = {id(p): n for n, p in params.items()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            out[f"{names[id(p)]}.{k}"] = v
+    out["lr"] = torch.tensor([g["lr"] for g in state.optimizer.param_groups],
+                             dtype=torch.float64)
+    sched = state.scheduler.state_dict()
+    out["steps"] = torch.tensor([sched["last_epoch"], sched["_step_count"],
+                                 state.step])
+    return out
+
+
+def bit_identical(a: dict, b: dict) -> list:
+    """Names whose tensors differ (dtype, shape or any bit)."""
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if a[k].dtype != b[k].dtype
+            or not torch.equal(a[k], b[k])]
+
+
+def jsonl(path: Path) -> list:
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
+
+
+def cli_phase(size, dirs, teacher, fused_ms, card) -> dict:
+    """The train entry point on the card (phase 8): an SRN tree made on
+    the card, ``run_training`` of the flagship YAML at its full widths for
+    ``CLI_STEPS`` steps with K1 and K2 (``use_pallas`` +
+    ``pallas_backward``, validation every 5 steps), the step-10 checkpoint
+    restored bit-identically, and the train CLI in a subprocess resuming
+    it to step 20.  ``fused_ms`` is the train phase's fused step, printed
+    beside the CLI's."""
+    emb = SRN_CARS_CODE["models"]["embedding"]
+    tables = CodeTables(10, emb["shape_code_size"],
+                        emb["texture_code_size"], "cuda",
+                        torch.Generator(device="cpu").manual_seed(SEED + 11))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        t0 = time.perf_counter()
+        root = work / "srn_cars"
+        tree = make_srn_tree(root, size, dirs, teacher, tables)
+        # the first read builds read_png's predictor table
+        decode_ms = statistics.median(tree["decode_ms"][1:])
+        print(f"cli: wrote {tree['images']} PNGs of {size}x{size} (8 train "
+              f"objects x 5 views, 2 val x 6) rendered through K1, rows "
+              f"filtered adaptively (None / Sub / Up / Average / Paeth: "
+              f"{tree['filters']}), read back equal by read_png in a median "
+              f"{decode_ms:.6g} ms per image (first {tree['decode_ms'][0]:.6g}"
+              f" ms), in {time.perf_counter() - t0:.4g} s", flush=True)
+        # the loop validates when i % validate_every == 0 and i < the last
+        # step, so validate_every = 10 would never validate in a 10-step
+        # leg: 5 validates at step 5 (leg 1) and 15 (leg 2)
+        overrides = [f"dataset.basedir={root}", f"experiment.logdir={work}",
+                     "experiment.id=cli", "experiment.save_every=10",
+                     "experiment.validate_every=5",
+                     "experiment.val_iterations=10",
+                     "experiment.print_every=5", "runtime.use_pallas=True",
+                     "runtime.pallas_backward=True"]
+        cfg = load_config(ROOT / CLI_YAML, overrides)
+        logdir = work / "cli"
+
+        # leg 1, in this process; validate is wrapped to count its launches
+        val_runs = []
+        validate = loop.validate
+
+        def counted_validate(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t_v = launch_counts(), time.perf_counter()
+            out = validate(*args, **kwargs)
+            torch.cuda.synchronize()
+            val_runs.append({
+                "ms": (time.perf_counter() - t_v) * 1e3,
+                "launches": {k: v - before[k]
+                             for k, v in launch_counts().items()},
+                "metrics": out})
+            return out
+
+        loop.validate = counted_validate
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t_leg = time.perf_counter()
+        try:
+            loop.run_training(cfg, max_steps=CLI_STEPS)
+        finally:
+            loop.validate = validate
+        torch.cuda.synchronize()
+        leg1_s = time.perf_counter() - t_leg
+        total = launch_counts()
+        if len(val_runs) != 1:
+            raise RuntimeError(f"leg 1 validated {len(val_runs)} times, "
+                               "expected once (step 5)")
+        val = val_runs[0]
+        train_launches = {k: total[k] - val["launches"][k] for k in total}
+        for name in ("K1", "K2"):
+            if not (train_launches[name] > 0 and val["launches"][name] > 0):
+                raise RuntimeError(f"cli leg 1: {name} launched "
+                                   f"{train_launches[name]} times in "
+                                   f"training, {val['launches'][name]} in "
+                                   "validation")
+        recs = jsonl(logdir / "metrics.jsonl")
+        train_recs = {r["step"]: r for r in recs if r["mode"] == "train"}
+        if sorted(train_recs) != [5, 10]:
+            raise RuntimeError(f"leg 1 logged steps {sorted(train_recs)}")
+        # the step-10 window holds the validation at step 5
+        step_ms = (train_recs[10]["time_taken"] * 1e3 - val["ms"]) / 5
+        vm = val["metrics"]
+        if not finite([vm["psnr"], vm["ssim"], train_recs[5]["nerf_loss_fine"],
+                       train_recs[10]["nerf_loss_fine"]]):
+            raise RuntimeError(f"cli leg 1: not finite: {vm}, {train_recs}")
+        rays = (cfg.dataset.train_batch_size
+                * cfg.nerf.ray_sampler.num_random_rays)
+        print(f"cli leg 1: run_training({CLI_YAML}, max_steps={CLI_STEPS}) "
+              f"in {leg1_s:.4g} s: steps 6-10 {step_ms:.6g} ms/step "
+              f"({rays / step_ms * 1e3:.6g} rays/s; steps 1-5 with warm-up "
+              f"{train_recs[5]['time_taken'] * 1e3 / 5:.6g} ms/step); fine "
+              f"loss step 5 {train_recs[5]['nerf_loss_fine']:.6g}, step 10 "
+              f"{train_recs[10]['nerf_loss_fine']:.6g}; validation at step "
+              f"5 ({cfg.experiment.val_iterations} TTO steps + the "
+              f"{val_image(cfg)} image) {val['ms']:.6g} ms, PSNR "
+              f"{vm['psnr']:.6g} dB, SSIM {vm['ssim']:.6g}; launches "
+              f"training {train_launches}, validation {val['launches']}",
+              flush=True)
+
+        # restore the step-10 checkpoint into A, save A, restore it into B
+        ckdir = logdir / "checkpoints"
+        if checkpoint.latest_step(ckdir) != CLI_STEPS:
+            raise RuntimeError(f"leg 1 left step "
+                               f"{checkpoint.latest_step(ckdir)}")
+        settings = RenderSettings.from_config(cfg)
+        n_obj = CLI_SPLITS[0][1]
+        a = init_train_state(cfg, settings, n_obj, seed=SEED + 20,
+                             device="cuda")
+        checkpoint.restore_checkpoint(ckdir, a, step=CLI_STEPS)
+        checkpoint.save_checkpoint(work / "copy", a)
+        b = init_train_state(cfg, settings, n_obj, seed=SEED + 21,
+                             device="cuda")
+        checkpoint.restore_checkpoint(work / "copy", b)
+        differ = bit_identical(state_tensors(a), state_tensors(b))
+        opt = cfg.optimizer
+        want_lr = [lr_at_step(lr, opt.scheduler_gamma,
+                              opt.scheduler_step_size, CLI_STEPS)
+                   for lr in (opt.lr, opt.lr, opt.resolved_embedding_lr)]
+        got_lr = [g["lr"] for g in a.optimizer.param_groups]
+        if differ or got_lr != want_lr or not a.optimizer.state:
+            raise RuntimeError(f"restore: differ {differ}, lr {got_lr} "
+                               f"against {want_lr}")
+        ds = SRNDataset(str(root), "train")
+        batch = BatchIterator(ds, cfg.dataset.train_batch_size,
+                              seed=SEED).fixed_batch()
+        K = torch.from_numpy(ds[0]["intrinsic"]).cuda()
+        h, w = batch["color"].shape[1:3]
+        inputs = (pixel_directions(h, w, K),
+                  torch.from_numpy(batch["pose"]).cuda(),
+                  torch.from_numpy(batch["color"]).cuda(),
+                  torch.from_numpy(batch["object_id"]).cuda())
+        for st in (a, b):
+            make_train_step(settings, st, cfg.nerf.ray_sampler.num_random_rays,
+                            cfg.experiment.regularizer_lambda, True)(
+                *inputs, torch.Generator(device="cuda").manual_seed(SEED))
+        differ_step = bit_identical(state_tensors(a), state_tensors(b))
+        if differ_step:
+            raise RuntimeError(f"one step from A and B: {differ_step} differ")
+        print(f"cli restore: step {CLI_STEPS} -> state A -> save -> state B: "
+              f"{len(state_tensors(a))} tensors bit-identical (moments and "
+              f"scheduler included), LRs {got_lr} = lr_at_step; one more "
+              f"step from each with the same draws: bit-identical",
+              flush=True)
+        # the validation again, warm (leg 1's was the process's first
+        # SSIM and first single-object TTO); its TTO share from the log
+        warm_dir = work / "warm"
+        logger = MetricLogger(warm_dir, enable_tensorboard=False)
+        torch.cuda.synchronize()
+        t_v = time.perf_counter()
+        loop.validate(Harness.from_config(cfg), {**a.models,
+                                                 "codes": a.tables},
+                      logger, CLI_STEPS + 1)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t_v) * 1e3
+        logger.close()
+        tto_ms = {name: [r["time_taken"] * 1e3 for r in jsonl(path)
+                         if r["mode"] == "val-optim"][-1]
+                  for name, path in (("leg 1", logdir / "metrics.jsonl"),
+                                     ("warm", warm_dir / "metrics.jsonl"))}
+        print(f"cli validation: leg 1 {val['ms']:.6g} ms (its "
+              f"{cfg.experiment.val_iterations} TTO steps "
+              f"{tto_ms['leg 1']:.6g} ms), warm {warm_ms:.6g} ms (TTO "
+              f"{tto_ms['warm']:.6g} ms) on {card}", flush=True)
+        del a, b
+
+        # leg 2: the train CLI in a subprocess resumes the checkpoint, with
+        # yaml and imageio made unimportable (this machine may have PyYAML,
+        # which load_config would prefer), so it runs on the stand-ins
+        cmd = [sys.executable, "-c", CLI_RUNNER,
+               "-c", CLI_YAML, *overrides, "--max-steps", str(CLI_STEPS)]
+        t_leg = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        leg2_s = time.perf_counter() - t_leg
+        if proc.returncode != 0:
+            raise RuntimeError(f"train CLI exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        refused = json.loads(proc.stdout.splitlines()[-1][len("loaded "):])
+        last = checkpoint.latest_step(ckdir)
+        dumped = config_from_dict(yaml_lite.safe_load(
+            (logdir / "config.yml").read_text()))
+        recs = jsonl(logdir / "metrics.jsonl")
+        leg2 = {r["step"]: r for r in recs if r["mode"] == "train"
+                and r["step"] > CLI_STEPS}
+        leg2_val = [r for r in recs if r["mode"] == "val"
+                    and r["step"] > CLI_STEPS]
+        if (refused or last != 2 * CLI_STEPS or dumped != cfg
+                or sorted(leg2) != [15, 20] or len(leg2_val) != 1
+                or not finite([leg2_val[0]["psnr"], leg2_val[0]["ssim"]])):
+            raise RuntimeError(f"train CLI: imported {refused}, latest step "
+                               f"{last}, config.yml equal {dumped == cfg}, "
+                               f"train records {sorted(leg2)}, val "
+                               f"{leg2_val}")
+        print(f"cli leg 2: python3 -m codenerf_tpu_torch.train_cli -c "
+              f"{CLI_YAML} --max-steps {CLI_STEPS} (yaml and imageio "
+              f"unimportable): exit 0 in {leg2_s:.4g} s, "
+              f"resumed at {CLI_STEPS}, latest step {last}; fine loss step "
+              f"15 {leg2[15]['nerf_loss_fine']:.6g}, step 20 "
+              f"{leg2[20]['nerf_loss_fine']:.6g}; validation at 15 PSNR "
+              f"{leg2_val[0]['psnr']:.6g} dB SSIM {leg2_val[0]['ssim']:.6g}; "
+              f"no module of {', '.join(REFUSED)} loaded; config.yml read "
+              f"back by yaml_lite equal", flush=True)
+        print(f"cli: {step_ms:.6g} ms/step (fused train step {fused_ms:.6g}),"
+              f" {rays / step_ms * 1e3:.6g} rays/s, validation "
+              f"{val['ms']:.6g} ms, read_png {decode_ms:.6g} ms per image on "
+              f"{card}", flush=True)
+        return {"step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
+                "fused_step_ms": fused_ms, "read_png_ms": decode_ms,
+                "png_filters": tree["filters"],
+                "first5_ms_per_step": train_recs[5]["time_taken"] * 1e3 / 5,
+                "validation_ms": val["ms"], "validation_warm_ms": warm_ms,
+                "validation_tto_ms": tto_ms, "val_psnr": vm["psnr"],
+                "val_ssim": vm["ssim"],
+                "fine_loss": {s: train_recs[s]["nerf_loss_fine"]
+                              for s in (5, 10)}
+                | {s: leg2[s]["nerf_loss_fine"] for s in (15, 20)},
+                "train_launches": train_launches,
+                "val_launches": val["launches"], "leg1_s": leg1_s,
+                "leg2_s": leg2_s, "images": tree["images"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def val_image(cfg) -> str:
+    crop = cfg.dataset.image_size - 2 * (cfg.dataset.image_size // 8)
+    return f"{crop}x{crop}"
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1487,6 +1880,10 @@ def main():
     tto = tto_phase(size, dirs, models, card)
     phase("tto", t0)
 
+    t0 = time.perf_counter()
+    cli = cli_phase(size, dirs, models, train["fused"]["step_ms"], card)
+    phase("cli", t0)
+
     # one image runs each S once per chunk at R = chunk; one train step
     # runs each S once at R = n_step
     def per_call(R):
@@ -1526,6 +1923,8 @@ def main():
                f"{sorted({s['S'] for s in k1['shapes']})}, R={chunk}",
         "launches_per_train_step": train["fused"]["launches_per_step"]["K1"],
         "tto_launches": tto["fused"]["launches"]["K1"],
+        "cli_train_launches": cli["train_launches"]["K1"],
+        "cli_val_launches": cli["val_launches"]["K1"],
         "launches_per_tto_step": tto["fused"]["launches_per_step"]["K1"],
         "train_step_ms": step_k1["ms"],
         "train_step_wrapper_ms": step_k1["wrapper_ms"],
@@ -1548,6 +1947,8 @@ def main():
             "launches_per_train_step": train[mode]["launches_per_step"][name],
             "tto_launches": tto[mode]["launches"][name],
             "launches_per_tto_step": tto[mode]["launches_per_step"][name],
+            "cli_train_launches": cli["train_launches"][name],
+            "cli_val_launches": cli["val_launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
             "rel_rms": max(r["rel_rms"] for r in bwd[name]),
             "ms": sum(r["ms"] for r in rows),
@@ -1599,6 +2000,7 @@ def main():
                f"at R={n_step}; launches counted over {TRAIN_STEPS} steps",
         "shapes": k4,
     })
+    print(json.dumps({"cli": cli}), flush=True)
     for name, results in (("train", train), ("tto", tto)):
         print(json.dumps({name: {m: {k: v for k, v in r.items()
                                      if k != "profile"}

@@ -1,9 +1,13 @@
 """codenerf_tpu_torch — the PyTorch/CUDA port of ``codenerf_tpu``.
 
-The package mirrors the JAX package's layout (``core/``, ``models/``,
-``ops/``, ``eval/``, ``pipeline.py``) so that each module has an obvious
-counterpart, but it imports only torch, numpy and the standard library:
-never ``jax``, ``yaml``, ``triton`` or any module of ``codenerf_tpu``.
+The package mirrors the JAX package's layout (``config/``, ``core/``,
+``data/``, ``models/``, ``ops/``, ``eval/``, ``train/``, ``utils/``,
+``pipeline.py``, ``harness.py``; ``train_cli.py`` is ``train.py``'s
+counterpart) so that each module has an obvious counterpart, but it
+imports only torch, numpy and the standard library: never ``jax``,
+``imageio``, ``triton`` or any module of ``codenerf_tpu``, and ``yaml``
+only inside ``config.load_config``, which reads with ``yaml_lite``
+where PyYAML is missing.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  The
 hand-written CUDA kernels (``ops/csrc/``) run for CUDA tensors; their plain

@@ -37,6 +37,12 @@ def _optimizer_class(name: str):
     return cls
 
 
+def lr_at_step(base_lr: float, gamma: float, step_size: int,
+               step: int) -> float:
+    """The scheduler's learning rate after ``step`` steps."""
+    return base_lr * gamma ** (step / step_size)
+
+
 def build_optimizer(opt_cfg: OptimizerConfig, models: dict, tables=None):
     """(optimizer, scheduler) over ``models`` {"coarse", "fine"} and the
     code tables.  AdamW runs at torch's defaults (weight decay 1e-2),

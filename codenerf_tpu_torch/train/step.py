@@ -8,6 +8,13 @@ walks the batch in chunks and accumulates the gradient, which gives the
 same loss and the same update.  Ray selection runs on the device from a
 ``torch.Generator``.  The step returns its metrics as tensors, so it never
 waits for the device.
+
+``use_checkify`` is the counterpart of the JAX step's
+``checkify.float_checks`` (``codenerf_tpu/train/step.py:165-177``): after
+the backward the loss and every gradient, after the update every
+parameter, must be finite, else the step raises ``FloatingPointError``
+naming the first bad leaf.  Each check waits for the device once; without
+the flag the step has none.
 """
 
 from __future__ import annotations
@@ -58,9 +65,36 @@ def gather_ray_batch(directions, pose, pixels, object_ids,
     return take(ro), take(rd), take(flat_pix), ids
 
 
+def _named_leaves(state: TrainState, grads: bool) -> list:
+    """(name, tensor) of every parameter, or of its gradient."""
+    modules = {**state.models, "tables": state.tables}
+    out = []
+    for prefix, module in modules.items():
+        for name, p in module.named_parameters():
+            t = p.grad if grads else p
+            if t is not None:
+                out.append((f"{prefix}.{name}{'.grad' if grads else ''}",
+                            t.detach()))
+    return out
+
+
+def _check_finite(leaves: list) -> None:
+    """Raise ``FloatingPointError`` naming the first of ``leaves``
+    ((name, tensor) pairs) that holds a nan or an inf; one wait for the
+    device."""
+    flags = torch.stack([torch.stack([torch.isnan(t).any(),
+                                      torch.isinf(t).any()])
+                         for _, t in leaves]).cpu()
+    for (name, _), (nan, inf) in zip(leaves, flags.tolist()):
+        if nan or inf:
+            raise FloatingPointError(
+                f"non-finite value in {name}: {'nan' if nan else 'inf'}")
+
+
 def make_train_step(settings: RenderSettings, state: TrainState,
                     num_random_rays: int, regularizer_lambda: float,
-                    perturb: bool, ray_chunks: int = 1) -> Callable:
+                    perturb: bool, ray_chunks: int = 1,
+                    use_checkify: bool = False) -> Callable:
     """Build the train step over ``state``.
 
     Returned signature: ``train_step(directions, pose, pixels, object_ids,
@@ -103,9 +137,14 @@ def make_train_step(settings: RenderSettings, state: TrainState,
             loss_e = loss_e.detach()
         else:
             loss_e = torch.zeros_like(loss_c)
+        if use_checkify:
+            _check_finite([("loss", loss_c + loss_f + loss_e)]
+                         + _named_leaves(state, grads=True))
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
+        if use_checkify:
+            _check_finite(_named_leaves(state, grads=False))
         return StepMetrics(loss=loss_c + loss_f + loss_e, loss_coarse=loss_c,
                            loss_fine=loss_f, loss_embedding=loss_e,
                            psnr=mse2psnr(loss_f))

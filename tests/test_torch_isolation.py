@@ -1,10 +1,12 @@
 """The port and chip_smoke.py import nothing the card's machine lacks.
 
-That machine has torch, numpy and the standard library but no JAX and no
-PyYAML, and the port must not reach into the JAX package (whose
-``__init__`` imports jax).  A subprocess refuses those imports and loads
-every module of the port and chip_smoke.py; the flagship settings come
-from ``SRN_CARS_CODE``, which must say what the YAML says.
+That machine has torch, numpy and the standard library but no JAX, no
+PyYAML and no imageio, and the port must not reach into the JAX package
+(whose ``__init__`` imports jax).  A subprocess refuses those imports,
+loads every module of the port and chip_smoke.py, reads the flagship
+YAML through ``yaml_lite`` and runs the train CLI's ``--help``; the
+flagship settings come from ``SRN_CARS_CODE``, which must say what the
+YAML says.
 """
 
 import os
@@ -21,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 ISOLATED = r'''
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "yaml", "triton", "codenerf_tpu")
+BLOCKED = ("jax", "jaxlib", "yaml", "imageio", "triton", "codenerf_tpu")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -52,6 +54,24 @@ assert cfg.optimizer.resolved_val_type == "AdamW"
 assert cfg.optimizer.val_lr == 0.005 and cfg.nerf.point_sampler.perturb
 assert cfg.nerf.ray_sampler.num_random_rays == 4096
 assert cfg.dataset.train_batch_size == 4 and cfg.optimizer.type == "AdamW"
+assert {"codenerf_tpu_torch.config.schema",
+        "codenerf_tpu_torch.config.yaml_lite", "codenerf_tpu_torch.data.png",
+        "codenerf_tpu_torch.data.srn", "codenerf_tpu_torch.data.loader",
+        "codenerf_tpu_torch.utils.logging", "codenerf_tpu_torch.harness",
+        "codenerf_tpu_torch.train.checkpoint", "codenerf_tpu_torch.train.loop",
+        "codenerf_tpu_torch.train_cli"} <= set(names)
+from codenerf_tpu_torch.config import load_config
+assert load_config("configs/srn-cars-code.yml") == cfg
+import contextlib, io, runpy
+sys.argv = ["train_cli", "--help"]
+help_text = io.StringIO()
+try:
+    with contextlib.redirect_stdout(help_text):
+        runpy.run_module("codenerf_tpu_torch.train_cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "--load-checkpoint" in help_text.getvalue()
+assert "--device" in help_text.getvalue()
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("isolated ok", len(names))
@@ -65,6 +85,7 @@ def _env():
 
 
 def test_port_and_smoke_import_without_jax_yaml_triton():
+    """Also without imageio; the train CLI's --help runs there."""
     out = subprocess.run([sys.executable, "-c", ISOLATED], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
