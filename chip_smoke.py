@@ -2,9 +2,11 @@
 """Chip smoke for the PyTorch/CUDA port (``codenerf_tpu_torch``).
 
 Drives the port's serving render, train step, test-time optimization
-(TTO) and train entry point on one NVIDIA card at the flagship width of
-``configs/srn-cars-code.yml`` (values from ``SRN_CARS_CODE``; the cli
-phase reads the file itself) with random weights from a seed:
+(TTO), train entry point and eval entry point on one NVIDIA card at the
+flagship width of ``configs/srn-cars-code.yml`` (values from
+``SRN_CARS_CODE``; the cli and eval phases read the file itself) with
+random weights from a seed, and the eval phase with the committed
+trained weights:
 
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``), K2 / K3
@@ -21,7 +23,12 @@ phase reads the file itself) with random weights from a seed:
                library times (CUDA events around back-to-back calls)
                beside the bound (K1: the kernel on inputs packed once, and
                its wrapper, which packs them every call; its share of the
-               bf16 peak).
+               bf16 peak); then widths past the limits the kernels once
+               had, against the plain versions at the same gates: K1 / K2
+               / K3 at hidden 288, codes 80, 12 xyz bands (bf16 K1's
+               row-tile route) and at hidden 48, codes 40 (zero-padded to
+               64; bf16 and f32), K4 at w (48, 288) in bf16 (w read from
+               global memory) and w (40, 24) (padded; bf16 and f32).
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
                with K1 (``use_pallas``; K1's launch count must rise by
                exactly 8), the same image with the plain trunk (PSNR gate
@@ -87,9 +94,28 @@ phase reads the file itself) with random weights from a seed:
                to step 20 (exit 0, no yaml / imageio import, its
                ``config.yml`` read back by ``yaml_lite``); ms per step from
                the logged ``time_taken``, validation ms, PSNR and SSIM.
-  9. result  — the kernel table as one JSON line (with each kernel's
-               launches per TTO step and in the cli legs), the card line,
-               and the last line ``{"ok": true, "device": {...}}``.
+  9. eval    — the eval entry point: first each trunk path's activation
+               factor for ``eval/capacity.py`` (the slope of
+               ``max_memory_allocated`` over one batched TTO step at K = 1
+               and K = 2 of the flagship shape); then the v4 lineage's val
+               split regenerated by ``tools/make_synth_data.py`` with its
+               arguments (an ``imageio`` stand-in writing through
+               ``png_bytes``) beside an empty train split, and ``python3 -m
+               codenerf_tpu_torch.eval_cli --all-objects --batch-objects 4``
+               in a subprocess (yaml and imageio unimportable) on the
+               committed ``fixtures/flagship-v4-cars-42100.ckpt`` with the
+               campaign's protocol (8 restarts, 300 TTO steps, a 300-step
+               flip rescue) through K1 + K2 (``use_pallas`` +
+               ``pallas_backward``): the per-object table, the means beside
+               JAX's 26.57 / 0.823 / 0.479 for the same checkpoint
+               (RESULTS.md), the K capacity chose, objects per minute and
+               the launches the subprocess counted; gates: exit 0, 8 finite
+               rows, K1 and K2 launched, mean PSNR >= 22 dB; and the
+               port's SSIM on the card against the CPU's (1e-4).
+ 10. result  — the kernel table as one JSON line (with each kernel's
+               launches per TTO step, in the cli legs and in the eval), the
+               card line, and the last line ``{"ok": true, "device":
+               {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
 raises and exits nonzero without the last line.  Imports only torch, numpy,
@@ -101,7 +127,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import inspect
 import json
+import os
 import shutil
 import statistics
 import struct
@@ -119,15 +147,17 @@ import torch
 from codenerf_tpu_torch.config import (SRN_CARS_CODE, config_from_dict,
                                        load_config, yaml_lite)
 from codenerf_tpu_torch.data import BatchIterator, SRNDataset, read_png
-from codenerf_tpu_torch.core import mse2psnr, pixel_directions, pose_spherical
+from codenerf_tpu_torch.core import (mse2psnr, pixel_directions,
+                                     pose_spherical, ssim)
 from codenerf_tpu_torch.eval import (
     init_batched_tto_state, init_multiview_se3_refine_state,
     init_multiview_tto_state, init_se3_refine_state, init_tto_state,
     make_batched_tto_step, make_image_renderer,
     make_multiview_se3_refine_step, make_multiview_tto_step,
     make_se3_refine_step, make_tto_step)
-from codenerf_tpu_torch.models import CodeNeRF, CodeTables, lookup_codes
-from codenerf_tpu_torch.ops import _build, fused, layer_bwd
+from codenerf_tpu_torch.models import (CodeNeRF, CodeNeRFConfig, CodeTables,
+                                       lookup_codes)
+from codenerf_tpu_torch.ops import _build, fused, layer_bwd, plan
 from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           kernel_weights, per_ray_parts,
                                           trunk_backward,
@@ -140,6 +170,7 @@ from codenerf_tpu_torch.pipeline import RenderSettings, trunk_path
 from codenerf_tpu_torch.train import (checkpoint, init_train_state,
                                       lr_at_step, make_train_step)
 from codenerf_tpu_torch.train import loop
+from codenerf_tpu_torch.eval import capacity
 from codenerf_tpu_torch.harness import Harness
 from codenerf_tpu_torch.utils.logging import MetricLogger
 
@@ -700,6 +731,124 @@ def check_k4(K, N, card) -> list:
         del x, w, y, g, b
         torch.cuda.empty_cache()
     return rows
+
+
+# widths past the limits the kernels once had (plan.py): hidden and code
+# widths that are not multiples of 32 run zero-padded; bf16 K1 wider than
+# K1_MAX_WIDTH or with more than K1_MAX_BANDS bands runs the row-tile
+# forward; bf16 K4 wider than K4_MAX_WIDTH reads w from global memory
+WIDTH_CASES = (("h288 s80 F12", 288, 80, 12, torch.bfloat16),
+               ("h48 s40 F10", 48, 40, 10, torch.bfloat16),
+               ("h48 s40 F10 f32", 48, 40, 10, torch.float32))
+K4_WIDTH_CASES = (("w (48, 288)", 48, 288, torch.bfloat16),
+                  ("w (40, 24)", 40, 24, torch.bfloat16),
+                  ("w (40, 24) f32", 40, 24, torch.float32))
+WIDTH_R, WIDTH_S = 2048, 64
+
+
+def _errs(got: dict, again: dict, want: dict, label: str) -> dict:
+    """(max abs, relRMS) of every output against its plain version; each
+    output finite and bit-identical across two calls."""
+    errs = {}
+    for k, w in want.items():
+        a = got[k]
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{label}: {k} is not finite")
+        if not torch.equal(a, again[k]):
+            raise RuntimeError(f"{label}: {k} differs between two calls")
+        d = a.float() - w.float()
+        errs[k] = (float(d.abs().max()),
+                   float(torch.linalg.norm(d) / torch.linalg.norm(w.float())))
+    return errs
+
+
+def _gate_widths(label, errs, gate) -> dict:
+    worst = max(errs, key=lambda k: errs[k][1])
+    print(f"{label}: every output bit-identical across two calls; "
+          f"max_abs_err / rel_rms: "
+          + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}" for k, v in errs.items()),
+          flush=True)
+    if not errs[worst][1] <= gate:
+        raise RuntimeError(f"{label} disagrees with its plain version: "
+                           f"{worst} relRMS {errs[worst][1]} > {gate}")
+    return {"case": label, "max_abs_err": max(v[0] for v in errs.values()),
+            "rel_rms": errs[worst][1], "worst": worst}
+
+
+def check_widths(card) -> dict:
+    """K1, K2, K3 and K4 at widths past the limits the kernels once had,
+    against their plain versions at R = 2048, S = 64 (K4: M = R S rows,
+    per-ray rows), with the gates of the kernels phase (relRMS 1e-2 in
+    bf16, 1e-4 in f32) and bit-identity across two calls.  K1's route is
+    the one ``plan.k1_plan`` picked."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    out = {"K1": [], "K2": [], "K3": [], "K4": []}
+    R, S = WIDTH_R, WIDTH_S
+    for name, H, SC, F, cd in WIDTH_CASES:
+        gate = REL_RMS_GATE if cd == torch.bfloat16 else F32_REL_RMS_GATE
+        cfg = CodeNeRFConfig(hidden_size=H, shape_code_size=SC,
+                             texture_code_size=SC, num_encoding_fn_xyz=F,
+                             compute_dtype=str(cd).replace("torch.", ""))
+        model = CodeNeRF(cfg, "cuda", gen)
+        pts = ((torch.rand(R, S, 3, generator=gen) * 2 - 1)).cuda()
+        dir_enc = torch.randn(R, cfg.dim_dir, generator=gen).cuda()
+        zs = torch.randn(R, SC, generator=gen).cuda()
+        zt = torch.randn(R, SC, generator=gen).cuda()
+        g = torch.randn(R, S, 4, generator=gen).cuda()
+        with torch.no_grad():
+            per_ray = per_ray_parts(model, dir_enc, zs, zt)
+            weights = kernel_weights(model, F, True)
+        _, launch = fused.trunk_forward_launcher(pts, per_ray, weights,
+                                                 compute_dtype=cd)
+        route = launch.route
+        before = trunk_forward.launches
+        got, again = (trunk_forward(pts, per_ray, weights, compute_dtype=cd)
+                      for _ in range(2))
+        want = trunk_forward_plain(pts, per_ray, weights, compute_dtype=cd)
+        torch.cuda.synchronize()
+        if trunk_forward.launches != before + 2:
+            raise RuntimeError(f"K1 {name}: launched "
+                               f"{trunk_forward.launches - before} times")
+        out["K1"].append(dict(_gate_widths(
+            f"widths K1 {name} ({route} route)", _errs(
+                {"raw": got}, {"raw": again}, {"raw": want}, f"K1 {name}"),
+            gate), route=route))
+        _, acts = hybrid_forward_plain(pts, per_ray, weights,
+                                       compute_dtype=cd)
+        for kname, a in (("K2", None), ("K3", acts)):
+            got, again, want = (bwd_outputs(f(pts, per_ray, weights["b1"],
+                                              weights, g, a,
+                                              compute_dtype=cd))
+                                for f in (trunk_backward, trunk_backward,
+                                          trunk_backward_plain))
+            torch.cuda.synchronize()
+            out[kname].append(_gate_widths(
+                f"widths {kname} {name}",
+                _errs(got, again, want, f"{kname} {name}"), gate))
+        del model, acts
+    for name, K, N, dt in K4_WIDTH_CASES:
+        gate = REL_RMS_GATE if dt == torch.bfloat16 else F32_REL_RMS_GATE
+        cd = torch.bfloat16 if dt == torch.bfloat16 else None
+        x = torch.relu(torch.randn(R, S, K, generator=gen)).to(dt).cuda()
+        w = ((torch.rand(K, N, generator=gen) * 2 - 1) / K ** 0.5).cuda()
+        y = torch.relu(torch.randn(R, S, N, generator=gen)).to(dt).cuda()
+        gg = (torch.randn(R, S, N, generator=gen) * 1e-3).to(dt).cuda()
+        b = torch.zeros(R, 1, N, dtype=dt).cuda()
+        k, n, w_in_smem = plan.k4_layout(K, N, x.element_size())
+        got, again, want = (dict(zip(("dx", "dw", "db"),
+                                     f(x, w, b, y, gg, cd)))
+                            for f in (linear_relu_bwd, linear_relu_bwd,
+                                      linear_relu_bwd_plain))
+        torch.cuda.synchronize()
+        layout = "w in shared memory" if w_in_smem else "w from global memory"
+        out["K4"].append(dict(_gate_widths(
+            f"widths K4 {name} (padded to ({k}, {n}), {layout})",
+            _errs(got, again, want, f"K4 {name}"), gate),
+            layout=layout))
+    torch.cuda.empty_cache()
+    print(f"widths: K1 K2 K3 K4 past the old limits agree with their plain "
+          f"versions on {card}", flush=True)
+    return out
 
 
 def phase(name, t0):
@@ -1682,6 +1831,215 @@ def cli_phase(size, dirs, teacher, fused_ms, card) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the eval phase: the committed flagship-v4-cars-42100 weights on the v4
+# lineage's own val split, regenerated here with the lineage's arguments
+# (RESULTS.md "Session 13", tools/run_campaign.sh), by the campaign's
+# category protocol (tools/run_campaign.sh: 8 restarts, K = 4, 300 TTO
+# steps, a 300-step flip rescue) through K1 + K2
+EVAL_DATA = ("--name", "cars", "--style", "proc", "--objects", "400",
+             "--val-objects", "8", "--views", "50", "--val-views", "10",
+             "--size", "128", "--seed", "7", "--only-stage", "val")
+EVAL_CKPT = "codenerf_tpu_torch/fixtures/flagship-v4-cars-42100.ckpt"
+EVAL_FLAGS = ("--num-objects", "400", "--all-objects", "--batch-objects",
+              "4")
+EVAL_OVERRIDES = ("optimizer.pose_restarts=8",
+                  "optimizer.pose_flip_steps=300", "runtime.use_pallas=True",
+                  "runtime.pallas_backward=True")
+EVAL_OBJECTS = 8
+EVAL_PSNR_GATE = 22.0
+# the same checkpoint by the same protocol in the JAX package
+# (RESULTS.md, "Session 14 (round 5)")
+JAX_CATEGORY = {"psnr": 26.57, "ssim": 0.823, "pose_error": 0.479}
+# the trunk paths whose activation factor eval/capacity.py keeps, by the
+# runtime flags that pick them
+CAPACITY_MODES = {"fused": {"use_pallas": True, "pallas_backward": True},
+                  "fused_recompute": {"use_pallas": True},
+                  "hybrid": {"pallas_hybrid": True}, "rays": {}}
+# ``eval_cli.main`` with yaml and imageio unimportable; the last line holds
+# its summary, the launch counts of its process, and the modules of yaml,
+# imageio, jax or codenerf_tpu that were loaded
+EVAL_RUNNER = (
+    "import json, sys; "
+    "sys.modules.update(dict.fromkeys(('yaml', 'imageio'))); "
+    "from codenerf_tpu_torch import eval_cli; "
+    "from codenerf_tpu_torch.ops.fused import trunk_forward, trunk_backward; "
+    "from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd; "
+    "out = eval_cli.main(sys.argv[1:]); "
+    "print('result ' + json.dumps({'summary': out, 'launches': {"
+    "'K1': trunk_forward.launches, "
+    "'K2': trunk_backward.launches_recompute, "
+    "'K3': trunk_backward.launches_stored, "
+    "'K4': linear_relu_bwd.launches}, 'loaded': sorted("
+    "m for m, v in sys.modules.items() if v is not None and "
+    f"m.split('.')[0] in {REFUSED!r})}}))")
+
+
+def imageio_standin(root: Path) -> Path:
+    """An ``imageio`` package under ``root`` whose ``v2.imwrite`` writes
+    uint8 RGB images through ``png_bytes``, for ``tools/make_synth_data.py``
+    on a machine without imageio."""
+    pkg = root / "imageio"
+    pkg.mkdir(parents=True)
+    (pkg / "__init__.py").write_text("")
+    (pkg / "v2.py").write_text(
+        "import struct\nimport zlib\n\nimport numpy as np\n\n"
+        f"PNG_SIGNATURE = {PNG_SIGNATURE!r}\n\n\n"
+        + inspect.getsource(png_bytes)
+        + "\n\ndef imwrite(path, img):\n"
+          "    with open(path, 'wb') as f:\n"
+          "        f.write(png_bytes(np.asarray(img, np.uint8))[0])\n")
+    return root
+
+
+def capacity_factors(models, tables, dirs, card) -> dict:
+    """The activation factor of each trunk path (``eval/capacity.py``):
+    the peak of ``torch.cuda.max_memory_allocated`` over one batched TTO
+    step at K = 1 and K = 2 of the flagship shape (after a K = 1 warm-up
+    step), above what was allocated before it; the slope per object over
+    the sample points' hidden-wide bytes (``capacity.fit_act_factor``)."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for path, flags in CAPACITY_MODES.items():
+        cfg, settings = mode_config(flags)
+        if trunk_path(settings) != path:
+            raise RuntimeError(f"flags {flags} pick {trunk_path(settings)}")
+        n_rays = cfg.nerf.ray_sampler.num_random_rays
+        peaks = []
+        for K in (1, 1, 2):
+            st, opt = init_batched_tto_state(tables, cfg.optimizer, K)
+            step = make_batched_tto_step(
+                settings, opt, n_rays, cfg.experiment.regularizer_lambda,
+                cfg.nerf.point_sampler.perturb)
+            targets = torch.rand(K, *dirs.shape[:2], 3, device="cuda",
+                                 generator=gen)
+            phis = torch.linspace(-1.0, 1.0, K, device="cuda")
+            poses = pose_spherical(torch.full_like(phis, 1.2), phis, 1.3)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(st, models, dirs, targets, poses, gen)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            del st, opt, step, targets
+        peak1, peak2 = peaks[1:]
+        factor = capacity.fit_act_factor(settings, n_rays, peak1, peak2)
+        out[path] = {"peak_k1_bytes": peak1, "peak_k2_bytes": peak2,
+                     "bytes_per_object": peak2 - peak1, "factor": factor,
+                     "module_factor": capacity.ACT_FACTORS[path]}
+        print(f"eval capacity {path}: one batched TTO step of {n_rays} rays "
+              f"an object, peak above the start K=1 {peak1} B, K=2 {peak2} "
+              f"B: {peak2 - peak1} B per object, fitted factor "
+              f"{factor:.6g} (capacity.ACT_FACTORS {capacity.ACT_FACTORS[path]}"
+              f") on {card}", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def eval_phase(models, tables, dirs, card) -> dict:
+    """The eval entry point on the card (phase 9): the capacity factors,
+    then the v4 val split regenerated by ``tools/make_synth_data.py``
+    (imageio stood in for by ``png_bytes``) beside an empty train split,
+    and ``python3 -m codenerf_tpu_torch.eval_cli --all-objects`` on it
+    with the committed checkpoint, the campaign's protocol and K1 + K2
+    (``use_pallas`` + ``pallas_backward``); gated on 8 finite rows, K1
+    and K2 launched, and the category mean PSNR."""
+    cap = capacity_factors(models, tables, dirs, card)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    try:
+        data = work / "srn_cars"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(imageio_standin(work / "standin"))]
+            + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "tools/make_synth_data.py", "--out", str(data),
+             *EVAL_DATA], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"make_synth_data exited {proc.returncode}:\n"
+                               f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        # --only-stage val writes no train directory; the loader, as the
+        # JAX package's, needs one (empty: the tables come from the
+        # checkpoint through --num-objects)
+        (data / "cars_train").mkdir()
+        n_png = len(list((data / "cars_val").glob("*/rgb/*.png")))
+        gen_s = time.perf_counter() - t0
+        print(f"eval: v4 val split regenerated (tools/make_synth_data.py "
+              f"{' '.join(EVAL_DATA)}) in {gen_s:.4g} s: {n_png} PNGs",
+              flush=True)
+        overrides = [f"dataset.basedir={data}", f"experiment.logdir={work}",
+                     *EVAL_OVERRIDES]
+        cmd = [sys.executable, "-c", EVAL_RUNNER, "-c", CLI_YAML,
+               "--load-checkpoint", EVAL_CKPT, *EVAL_FLAGS, *overrides]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=900)
+        wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"eval CLI exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        res = json.loads(lines[-1][len("result "):])
+        for line in lines[:-1]:
+            if not line.startswith("[VALOPT] Iter"):
+                print(f"eval | {line}", flush=True)
+        summary, launches = res["summary"], res["launches"]
+        rows = summary["per_object"]
+        values = [v for r in rows for v in r.values()]
+        cfg = load_config(ROOT / CLI_YAML, overrides)
+        opt = cfg.optimizer
+        n_iters = cfg.experiment.val_iterations
+        steps = (opt.pose_restarts * max(1, min(opt.pose_restart_steps,
+                                                n_iters))
+                 + n_iters + opt.pose_flip_steps + 2)
+        K = summary["batch_objects"]
+        steps_per_s = steps * summary["groups"] / summary["tto_seconds"]
+        print(f"eval: {len(rows)} objects, mean PSNR "
+              f"{summary['psnr_mean']:.4f} / SSIM {summary['ssim_mean']:.4f} "
+              f"/ pose error {summary['pose_error_mean']:.4f} rad / "
+              f"dPSNR(GT pose) {summary['delta_psnr_gt_pose_mean']:+.4f}; "
+              f"JAX on the same checkpoint and protocol (RESULTS.md, "
+              f"Session 14 (round 5)): {JAX_CATEGORY['psnr']} / "
+              f"{JAX_CATEGORY['ssim']} / {JAX_CATEGORY['pose_error']}",
+              flush=True)
+        print(f"eval: capacity chose K={K} (groups {summary['groups']}); "
+              f"TTO {summary['tto_seconds']:.6g} s for {steps} steps a group "
+              f"({steps_per_s:.6g} TTO steps/s, {K * steps_per_s:.6g} "
+              f"object-steps/s, {summary['objects_per_min']:.6g} objects/"
+              f"min); the CLI in {wall_s:.4g} s; launches K1 "
+              f"{launches['K1']}, K2 {launches['K2']}, K3 {launches['K3']}, "
+              f"K4 {launches['K4']} on {card}", flush=True)
+        if (res["loaded"] or len(rows) != EVAL_OBJECTS or not finite(values)
+                or not (launches["K1"] > 0 and launches["K2"] > 0)):
+            raise RuntimeError(f"eval: {len(rows)} rows, finite "
+                               f"{finite(values)}, launches {launches}, "
+                               f"loaded {res['loaded']}")
+        if not summary["psnr_mean"] >= EVAL_PSNR_GATE:
+            raise RuntimeError(f"eval: mean PSNR {summary['psnr_mean']} < "
+                               f"{EVAL_PSNR_GATE}")
+        # the eval's SSIM is f32 on the card: a val target against a
+        # blurred, noisy copy, on the card and on the CPU
+        target = torch.from_numpy(
+            SRNDataset(str(data), "val")[0]["color"][..., :3]).float()
+        noisy = (torch.nn.functional.avg_pool2d(
+            target.permute(2, 0, 1)[None], 3, 1, 1)[0].permute(1, 2, 0)
+            + 0.03 * torch.randn(target.shape, generator=torch.Generator(
+                ).manual_seed(SEED + 15))).clamp(0, 1)
+        ssim_card = float(ssim(noisy.cuda(), target.cuda()))
+        ssim_cpu = float(ssim(noisy, target))
+        print(f"eval: SSIM of a val target against a noisy copy: card "
+              f"{ssim_card:.6f}, CPU {ssim_cpu:.6f}", flush=True)
+        if not abs(ssim_card - ssim_cpu) <= 1e-4:
+            raise RuntimeError(f"eval: SSIM on the card {ssim_card} against "
+                               f"{ssim_cpu} on the CPU")
+        return {"summary": summary, "launches": launches, "capacity": cap,
+                "steps_per_group": steps, "tto_steps_per_s": steps_per_s,
+                "cli_s": wall_s, "data_s": gen_s, "jax": JAX_CATEGORY}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def val_image(cfg) -> str:
     crop = cfg.dataset.image_size - 2 * (cfg.dataset.image_size // 8)
     return f"{crop}x{crop}"
@@ -1762,6 +2120,7 @@ def main():
                     rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
                     z_t.expand(n_step, -1), chunk)
     del model32
+    widths = check_widths(card)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -1884,6 +2243,10 @@ def main():
     cli = cli_phase(size, dirs, models, train["fused"]["step_ms"], card)
     phase("cli", t0)
 
+    t0 = time.perf_counter()
+    ev = eval_phase(models, tables, dirs, card)
+    phase("eval", t0)
+
     # one image runs each S once per chunk at R = chunk; one train step
     # runs each S once at R = n_step
     def per_call(R):
@@ -1925,6 +2288,7 @@ def main():
         "tto_launches": tto["fused"]["launches"]["K1"],
         "cli_train_launches": cli["train_launches"]["K1"],
         "cli_val_launches": cli["val_launches"]["K1"],
+        "eval_launches": ev["launches"]["K1"],
         "launches_per_tto_step": tto["fused"]["launches_per_step"]["K1"],
         "train_step_ms": step_k1["ms"],
         "train_step_wrapper_ms": step_k1["wrapper_ms"],
@@ -1933,6 +2297,7 @@ def main():
         "train_step_bound_ms": bound_ms(step_k1_cost)[0],
         "shapes": k1["shapes"],
         "f32": f32_cases["K1"],
+        "widths": widths["K1"],
     }]
     for name, mode in (("K2", "fused"), ("K3", "hybrid")):
         rows = [r for r in bwd[name] if r["R"] == n_step]
@@ -1949,6 +2314,7 @@ def main():
             "launches_per_tto_step": tto[mode]["launches_per_step"][name],
             "cli_train_launches": cli["train_launches"][name],
             "cli_val_launches": cli["val_launches"][name],
+            "eval_launches": ev["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
             "rel_rms": max(r["rel_rms"] for r in bwd[name]),
             "ms": sum(r["ms"] for r in rows),
@@ -1964,6 +2330,7 @@ def main():
                    f"launches counted over {TRAIN_STEPS} steps",
             "shapes": bwd[name],
             "f32": f32_cases[name],
+            "widths": widths[name],
             "f32_train_step": train[f"f32_{mode}"],
         })
     # one layer_bwd step: layer_xyz2 and layer_dir1 (per-ray rows) and
@@ -1999,8 +2366,14 @@ def main():
                f"{', '.join(f'{n} x {c}' for c, n in step_cases.items())} "
                f"at R={n_step}; launches counted over {TRAIN_STEPS} steps",
         "shapes": k4,
+        "eval_launches": ev["launches"]["K4"],
+        "widths": widths["K4"],
     })
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"eval": {k: v for k, v in ev.items()
+                               if k != "summary"}
+                      | {"summary": {k: v for k, v in ev["summary"].items()
+                                     if k != "per_object"}}}), flush=True)
     for name, results in (("train", train), ("tto", tto)):
         print(json.dumps({name: {m: {k: v for k, v in r.items()
                                      if k != "profile"}

@@ -7,7 +7,6 @@ package's, which the reference lacks (the CodeNeRF paper reports SSIM).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def mse2psnr(mse) -> torch.Tensor:
@@ -39,10 +38,15 @@ def ssim(img0, img1, max_val: float = 1.0, filter_size: int = 11,
     kernel = kernel / torch.sum(kernel)
 
     def blur(x):  # separable Gaussian, valid mode, per channel
-        xt = x.permute(2, 0, 1)[:, None]                    # [C, 1, H, W]
-        y = F.conv2d(xt, kernel.reshape(1, 1, -1, 1))
-        y = F.conv2d(y, kernel.reshape(1, 1, 1, -1))
-        return y[:, 0].permute(1, 2, 0)                     # [H', W', C]
+        # weighted sums of shifted slices, in f32 on every device, so the
+        # result does not hang on the convolution algorithm cuDNN picks
+        # (TF32 is allowed for them by default): blur(x^2) - mu^2 cancels
+        # on flat regions, where rounding the inputs moves the mean SSIM
+        # by tenths
+        n = kernel.shape[0]
+        h, w = x.shape[0] - n + 1, x.shape[1] - n + 1
+        y = sum(kernel[k] * x[k:k + h] for k in range(n))
+        return sum(kernel[k] * y[:, k:k + w] for k in range(n))
 
     mu0 = blur(img0)
     mu1 = blur(img1)

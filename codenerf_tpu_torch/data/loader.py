@@ -36,7 +36,7 @@ def build_dataset(cfg_dataset, stage: str):
             raise NotImplementedError(
                 f"dataset type {cfg_dataset.type}: the Blender and LLFF "
                 "loaders (and NDC rays) are not ported yet (ROADMAP "
-                "Queue 1 item 4)")
+                "Queue 1 item 1)")
         raise ValueError(f"unknown dataset type: {cfg_dataset.type}")
     return cls(cfg_dataset.basedir, stage)
 

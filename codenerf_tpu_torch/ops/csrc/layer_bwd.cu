@@ -13,8 +13,12 @@
 //                                            for per-ray rows
 //
 // Operands are bf16 (the flagship) or f32 (products on the CUDA cores in
-// f32 fma, no TF32).  K and N are multiples of 16 (at most 256 in bf16);
-// M is any count and S any ray length.
+// f32 fma, no TF32).  K and N are multiples of 16 (the wrapper zero-pads
+// other widths); M is any count and S any ray length.  bf16 keeps w in
+// shared memory for wgmma up to K, N = 256; a wider bf16 layer, chosen by
+// shape before the launch (plan.py::k4_layout), runs f32's layout in bf16:
+// w read from global memory, the products on the CUDA cores, gp held in
+// f32 (exact: it is a bf16 value) and dx rounded to bf16 as it is stored.
 //
 // Bound on the H100: each row reads x, y and g and writes dx, 2 KB a row
 // at K = N = 256 in bf16, against 4 K N = 262,144 FLOP of products: 128
@@ -55,7 +59,8 @@
 //   2. xtg.cuh: dw = x^T gp as a tall split-K wgmma product, partials
 //      summed in split order; a bias's db partials summed in block order.
 // No atomics: two calls on the same card give the same bits.  f32 keeps
-// the same two steps with CUDA-core products (32-row tiles).
+// the same two steps with CUDA-core products (32-row tiles,
+// layer_bwd_rows_global), as does bf16 above K, N = 256.
 
 #include "xtg.cuh"
 
@@ -66,12 +71,14 @@ typedef __nv_bfloat16 bf16;
 constexpr int NTHREADS = 256;
 constexpr int KR = 256;  // rows of w's shared-memory tile (bf16): K <= 256
 
-template <typename T>
-__host__ __device__ constexpr int tile_rows() {
-  return sizeof(T) == 2 ? 64 : 32;
-}
-
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
 
 template <typename T>
 struct Args {
@@ -86,13 +93,16 @@ struct Args {
   int S, K, N;
 };
 
-// shared memory of the row pass: bf16 w and gp column blocks of 64, the dx
-// tile (row stride K + 8), the db sums, alignment slack; f32 a padded gp
-// tile and the db sums
-__host__ __device__ inline int rows_smem_bytes(int bf, int K, int N) {
+constexpr int TMG = 32;  // rows per tile of the global-memory-w layout
+
+// shared memory of the row pass: with w in shared memory (bf16), w and gp
+// column blocks of 64, the dx tile (row stride K + 8), the db sums,
+// alignment slack; with w in global memory, an f32 gp tile (row stride
+// N + 4) and the db sums
+__host__ __device__ inline int rows_smem_bytes(int w_in_smem, int K, int N) {
   const int ncb = (N + 63) / 64;
-  return bf ? ncb * (KR * 128 + 64 * 128) + 64 * (K + 8) * 2 + N * 4 + 1024
-            : tile_rows<float>() * (N + 4) * 4 + N * 4;
+  return w_in_smem ? ncb * (KR * 128 + 64 * 128) + 64 * (K + 8) * 2 + N * 4 + 1024
+                   : TMG * (N + 4) * 4 + N * 4;
 }
 
 // db: one thread a column walks the tile's rows in order; a per-ray sum is
@@ -247,8 +257,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) layer_bwd_rows_bf16(const Args<bf
     for (int c = tid; c < N; c += NTHREADS) p.db_part[(size_t)blockIdx.x * N + c] = dbacc[c];
 }
 
-__global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_f32(const Args<float> p) {
-  constexpr int TM = 32;
+// The row pass with w read from global memory: f32 K4, and bf16 K4 wider
+// than the shared-memory layout holds.  gp is held in f32 (exact), every
+// product sums in f32 fma, dx is rounded to T as it is stored.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_global(const Args<T> p) {
+  constexpr int TM = TMG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = p.K, N = p.N, ldg = N + 4;
   float* const gps = reinterpret_cast<float*>(smem_raw);
@@ -264,8 +278,8 @@ __global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_f32(const Args<float>
       float v = 0.0f;
       if (r < nvalid) {
         const size_t off = (size_t)(row0 + r) * N + c;
-        v = p.y[off] > 0.0f ? p.g[off] : 0.0f;
-        p.gp[off] = v;
+        v = to_f(p.y[off]) > 0.0f ? to_f(p.g[off]) : 0.0f;
+        p.gp[off] = from_f<T>(v);
       }
       gps[r * ldg + c] = v;
     }
@@ -276,13 +290,13 @@ __global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_f32(const Args<float>
       float acc[TM];
 #pragma unroll
       for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
-      const float* wk = p.w + (size_t)k * N;
+      const T* wk = p.w + (size_t)k * N;
       for (int n = 0; n < N; ++n) {
-        const float wv = __ldg(wk + n);
+        const float wv = to_f(wk[n]);
 #pragma unroll
         for (int r = 0; r < TM; ++r) acc[r] = fmaf(gps[r * ldg + n], wv, acc[r]);
       }
-      for (int r = 0; r < nvalid; ++r) p.dx[(row0 + r) * K + k] = acc[r];
+      for (int r = 0; r < nvalid; ++r) p.dx[(row0 + r) * K + k] = from_f<T>(acc[r]);
     }
     __syncthreads();
   }
@@ -293,8 +307,10 @@ __global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_f32(const Args<float>
 
 typedef void (*KernelBf16)(const Args<bf16>);
 typedef void (*KernelF32)(const Args<float>);
-KernelBf16 kernel_of(const Args<bf16>&) { return layer_bwd_rows_bf16; }
-KernelF32 kernel_of(const Args<float>&) { return layer_bwd_rows_f32; }
+KernelBf16 kernel_of(const Args<bf16>&, int w_in_smem) {
+  return w_in_smem ? layer_bwd_rows_bf16 : layer_bwd_rows_global<bf16>;
+}
+KernelF32 kernel_of(const Args<float>&, int) { return layer_bwd_rows_global<float>; }
 
 template <typename T>
 int launch(const void* const* ptr, const long long* dims, void* stream) {
@@ -311,13 +327,14 @@ int launch(const void* const* ptr, const long long* dims, void* stream) {
   p.K = (int)dims[2];
   p.N = (int)dims[3];
   const int G = (int)dims[4], smem = (int)dims[5], tm = (int)dims[6];
-  const bool bf = sizeof(T) == 2;
+  const int w_in_smem = (int)dims[7];
   // the plan (plan.py::layer_bwd_plan) must match this file's layout
-  if (p.M <= 0 || p.S <= 0 || G <= 0 || p.K % 16 || p.N % 16 || (bf && (p.K > KR || p.N > 256)) ||
-      smem != rows_smem_bytes(bf, p.K, p.N) || tm != tile_rows<T>() ||
+  if (p.M <= 0 || p.S <= 0 || G <= 0 || p.K % 16 || p.N % 16 ||
+      (w_in_smem && (sizeof(T) != 2 || p.K > KR || p.N > 256)) ||
+      smem != rows_smem_bytes(w_in_smem, p.K, p.N) || tm != (w_in_smem ? 64 : TMG) ||
       (p.db_rows != nullptr && p.M % p.S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = kernel_of(p);
+  const auto kernel = kernel_of(p, w_in_smem);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<G, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
@@ -334,7 +351,8 @@ const char* layer_bwd_error_string(int code) {
 
 // Step 1 of K4 on `stream`: gp, dx and db.  ptr: w y g gp dx db_rows
 // db_part (db_rows null for a bias, db_part null for per-ray rows); dims:
-// M S K N G smem tile_rows.  Returns cudaGetLastError().
+// M S K N G smem tile_rows w_in_smem (plan.py::layer_bwd_plan's layout:
+// 1 keeps w in shared memory, bf16 only).  Returns cudaGetLastError().
 int layer_bwd_rows(const void* const* ptr, const long long* dims, int f32, void* stream) {
   return f32 ? launch<float>(ptr, dims, stream) : launch<bf16>(ptr, dims, stream);
 }

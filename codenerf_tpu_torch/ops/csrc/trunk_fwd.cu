@@ -83,6 +83,12 @@
 // ping-pong between, and the products run on the CUDA cores (f32 fma, no
 // TF32), from trunk_common.cuh, the chain K2 recomputes
 // (plan.py::trunk_fwd_plan).
+//
+// bf16 wider than the wgmma kernel takes (a padded width above 256, or
+// more than 10 xyz bands) runs the same row-tile chain in bf16
+// (trunk_fwd_kernel<bf16>: 64-row tiles, wmma products with the weights
+// read from L2), the chain K2's recompute runs, with K1's cast points.
+// plan.py::k1_plan picks it by shape before any launch.
 
 #include "hopper.cuh"
 #include "trunk_common.cuh"
@@ -616,8 +622,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_fwd_kernel(const Args<T> p)
   fwd_tile<T>(p.w, p.pts, p.nrows, (long long)blockIdx.x * tile_rows<T>(), p.out, smem);
 }
 
-int launch_f32(const void* const* in, void* out, const int* dims, void* stream) {
-  typedef float T;
+template <typename T>
+int launch_rows(const void* const* in, void* out, const int* dims, void* stream) {
   const int R = dims[0], S = dims[1], H = dims[2], SC = dims[3], F = dims[4];
   Args<T> p;
   p.pts = static_cast<const float*>(in[0]);
@@ -722,14 +728,16 @@ int trunk_fwd_bf16(const void* const* in, void* out, const long long* dims, void
                   : launch_wgmma<128, 128>(p, grid, smem, st);
 }
 
-// Launches f32 K1 on `stream`; returns cudaGetLastError() after the launch.
+// Launches the row-tile K1 (f32, or bf16 with `f32` 0) on `stream`;
+// returns cudaGetLastError() after the launch.
 // in:  pts zs1p featp sigp dirp zt1p b1 w1x w1s w1c bands w2 wof wos wd wd2
 //      bd2 wr, then w1x w1s w1c w2 wof wd wd2 transposed (w1x null without
-//      the input term; all f32)
+//      the input term; all in the compute type but pts and bands, f32)
 // dims: R S H SC F smem tile_rows.  Requires H % 32 == 0 and SC % 32 == 0
-// (the wrapper checks).
-int trunk_fwd_f32(const void* const* in, void* out, const int* dims, void* stream) {
-  return launch_f32(in, out, dims, stream);
+// (the wrapper pads).
+int trunk_fwd_rows(const void* const* in, void* out, const int* dims, int f32, void* stream) {
+  return f32 ? launch_rows<float>(in, out, dims, stream)
+             : launch_rows<bf16>(in, out, dims, stream);
 }
 
 }  // extern "C"

@@ -262,8 +262,8 @@ def _kernel_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.trunk_fwd_bf16.argtypes = [ptr, ptr, ptr, ptr]
     lib.trunk_fwd_bf16.restype = i32
-    lib.trunk_fwd_f32.argtypes = [ptr, ptr, ptr, ptr]
-    lib.trunk_fwd_f32.restype = i32
+    lib.trunk_fwd_rows.argtypes = [ptr, ptr, ptr, i32, ptr]
+    lib.trunk_fwd_rows.restype = i32
     lib.trunk_fwd_error_string.argtypes = [i32]
     lib.trunk_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -285,6 +285,69 @@ def _padded(w, rows):
     out = torch.zeros((rows, w.shape[1]), dtype=w.dtype, device=w.device)
     out[:w.shape[0]] = w
     return out
+
+
+def _pad_to(t, *size):
+    """``t`` zero-padded at the end of its last ``len(size)`` axes to
+    ``size``."""
+    if t is None:
+        return None
+    pad = []
+    for n, want in zip(reversed(t.shape), reversed(size)):
+        pad += [0, want - n]
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
+
+
+# the hidden (h) and code (s) axes of each weight, per-ray row and
+# activation the trunk kernels take
+_WIDTH_AXES = {"w1x": ("", "h"), "w1s": ("", "h"), "w1c": ("", "h"),
+               "b1": ("h",), "w2": ("h", "h"), "wof": ("h", "s"),
+               "wos": ("h", ""), "wd": ("s", "h"), "wd2": ("h", "h"),
+               "bd2": ("h",), "wr": ("h", ""), "zs1p": ("", "h"),
+               "featp": ("", "s"), "dirp": ("", "h"), "h1": ("", "h"),
+               "h2": ("", "h"), "feat": ("", "s"), "v1": ("", "h"),
+               "v2": ("", "h")}
+
+
+def _resize(tensors: dict, widths: dict) -> dict:
+    """Each tensor of ``tensors`` named in ``_WIDTH_AXES`` zero-padded (or
+    sliced back) along its hidden and code axes to ``widths`` {"h", "s"};
+    the others as given."""
+    out = {}
+    for k, t in tensors.items():
+        axes = _WIDTH_AXES.get(k)
+        if t is None or axes is None:
+            out[k] = t
+            continue
+        size = [widths[a] if a else n
+                for a, n in zip(axes, t.shape[-len(axes):])]
+        if all(n <= w for n, w in zip(t.shape[-len(axes):], size)):
+            out[k] = _pad_to(t, *size)
+        else:
+            out[k] = t[(...,) + tuple(slice(0, n) for n in size)]
+    return out
+
+
+def pad_trunk(per_ray: dict, weights: dict, b1, acts, h: int, sc: int):
+    """The trunk kernels' inputs at hidden width ``h`` and code width
+    ``sc``, zero-padded: (per_ray, weights, b1, acts).  Padding is exact:
+    a padded hidden unit has zero weights, bias and per-ray row, so its
+    relu gives 0, its outgoing weight rows are zero, and its gradients
+    are 0; a padded code column meets zero weight rows."""
+    widths = {"h": h, "s": sc}
+    b1 = None if b1 is None else _resize({"b1": b1}, widths)["b1"]
+    return (_resize(per_ray, widths), _resize(weights, widths), b1,
+            None if acts is None else _resize(acts, widths))
+
+
+def unpad_trunk_grads(grads, h: int, sc: int):
+    """``trunk_backward``'s (g_pts, per-ray grads, db1, weight grads) at
+    padded widths, sliced back to hidden width ``h`` and code width
+    ``sc``."""
+    g_pts, g_per_ray, db1, dw = grads
+    widths = {"h": h, "s": sc}
+    return (g_pts, _resize(g_per_ray, widths), db1[:h],
+            _resize(dw, widths))
 
 
 def _compute_type(name, compute_dtype):
@@ -434,9 +497,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# bf16 K1's plan by shape (read only): the render and the step ask for the
+# K1's plan by shape (read only): the render and the step ask for the
 # same few shapes every call
-_k1_plan = functools.lru_cache(maxsize=64)(plan.trunk_fwd_wgmma_plan)
+_k1_plan = functools.lru_cache(maxsize=64)(plan.k1_plan)
 
 
 def trunk_forward_launcher(pts, per_ray: dict, weights: dict, *,
@@ -444,7 +507,14 @@ def trunk_forward_launcher(pts, per_ray: dict, weights: dict, *,
     """K1's inputs for CUDA tensors, checked, cast and packed: (out,
     launch), where each ``launch()`` runs K1 on them into ``out`` [R, S, 4]
     f32 and counts the launch.  ``trunk_forward`` launches once; a timing
-    loop launches again without repacking."""
+    loop launches again without repacking.
+
+    ``plan.k1_plan`` picks the kernel by shape before anything launches:
+    widths that are not multiples of 32 are zero-padded (``pad_trunk``);
+    bf16 at padded widths up to ``plan.K1_MAX_WIDTH`` with at most
+    ``plan.K1_MAX_BANDS`` bands runs the persistent wgmma kernel, and f32
+    and the wider bf16 shapes run the row-tile kernel of
+    ``trunk_common.cuh``."""
     cd = _compute_type("K1", compute_dtype)
     dev = pts.device
     if pts.dim() != 3 or pts.shape[-1] != 3:
@@ -454,40 +524,49 @@ def trunk_forward_launcher(pts, per_ray: dict, weights: dict, *,
     F = weights["w1s"].shape[0] // 3
     lib = _kernel_lib()
     out = torch.empty((R, S, 4), dtype=torch.float32, device=dev)
-    if cd == torch.bfloat16:
-        pl = _k1_plan(R, S, h, sc, F, _sm_count(dev.index))
+    pl = _k1_plan(R, S, h, sc, F, cd.itemsize, _sm_count(dev.index))
+    per_ray, weights, _, _ = pad_trunk(per_ray, weights, None, None,
+                                       pl["h"], pl["sc"])
+    h, sc = pl["h"], pl["sc"]
+    if pl["route"] == "wgmma":
         ins = _row_inputs("K1", pts, per_ray, weights["b1"], weights, cd)
         ins["img"] = k1_images(weights, pl, cd)
         dims = (ctypes.c_longlong * 12)(
             R, S, h, sc, F, pl["tile_rows"], pl["smem"], pl["grid"],
             pl["tiles"], pl["image_bytes"], pl["nh"], pl["ns"])
-        entry, ptrs = lib.trunk_fwd_bf16, _ptrs(
-            [ins[k] for k in (*_BF16_KEYS, "img")])
+        ptrs = _ptrs([ins[k] for k in (*_BF16_KEYS, "img")])
+
+        def entry(stream):
+            return lib.trunk_fwd_bf16(ptrs, out.data_ptr(), dims, stream)
     else:
-        pl = plan.trunk_fwd_plan(R, S, h, sc, F, cd.itemsize)
         ins = _trunk_inputs("K1", pts, per_ray, weights["b1"], weights, cd,
                             pl["kp"])
         dims = (ctypes.c_int * 7)(R, S, h, sc, F, pl["smem"],
                                   pl["tile_rows"])
-        entry, ptrs = lib.trunk_fwd_f32, _ptrs([ins[k] for k in _IN_KEYS])
+        ptrs = _ptrs([ins[k] for k in _IN_KEYS])
+        f32_flag = int(cd == torch.float32)
+
+        def entry(stream):
+            return lib.trunk_fwd_rows(ptrs, out.data_ptr(), dims, f32_flag,
+                                      stream)
 
     def launch():
         with torch.cuda.device(dev):
-            err = entry(ptrs, out.data_ptr(), dims,
-                        torch.cuda.current_stream(dev).cuda_stream)
+            err = entry(torch.cuda.current_stream(dev).cuda_stream)
         _check(err, "K1", lib.trunk_fwd_error_string, "launch")
         trunk_forward.launches += 1
 
     launch.inputs = ins       # keeps the packed inputs alive with launch
+    launch.route = pl["route"]
     return out, launch
 
 
 def trunk_forward(pts, per_ray: dict, weights: dict, *, compute_dtype=None):
     """raw [R, S, 4] f32 from pts [R, S, 3], the per-ray rows of
     ``per_ray_parts`` and the weights of ``kernel_weights``.  Launches K1
-    for CUDA tensors (bf16: the persistent wgmma kernel, widths at most
-    ``plan.K1_MAX_WIDTH``; f32: the CUDA-core kernel) and runs the plain
-    version for CPU tensors."""
+    for CUDA tensors (the kernel ``plan.k1_plan`` picks by shape; see
+    ``trunk_forward_launcher``) and runs the plain version for CPU
+    tensors."""
     if pts.device.type == "cuda":
         out, launch = trunk_forward_launcher(pts, per_ray, weights,
                                              compute_dtype=compute_dtype)
@@ -530,10 +609,13 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
     if pts.dim() != 3 or pts.shape[-1] != 3:
         raise ValueError(f"pts must be [R, S, 3], got {tuple(pts.shape)}")
     R, S = pts.shape[:2]
-    h, sc = weights["wof"].shape
+    h0, sc0 = weights["wof"].shape
     F = weights["w1s"].shape[0] // 3
     has_x = weights["w1x"] is not None
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # widths that are not multiples of 32 run zero-padded (``pad_trunk``)
+    h, sc = (plan.padded(n, plan.TRUNK_MULTIPLE) for n in (h0, sc0))
+    per_ray, weights, b1, acts = pad_trunk(per_ray, weights, b1, acts, h, sc)
+    n_sm = _sm_count(dev.index)
     pl = plan.trunk_bwd_plan(R, S, h, sc, F, has_x, cd.itemsize, n_sm,
                              stored=acts is not None)
     ins = _trunk_inputs(name, pts, per_ray, b1, weights, cd, pl["kp"])
@@ -612,7 +694,7 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
           "bd2": narrow[4 * h:5 * h]}
     db1 = w1[2 * kp + 3]
     g_per_ray = {k: outs[k] for k in PER_RAY_KEYS}
-    return outs["g_pts"], g_per_ray, db1, dw
+    return unpad_trunk_grads((outs["g_pts"], g_per_ray, db1, dw), h0, sc0)
 
 
 def trunk_backward(pts, per_ray: dict, b1, weights: dict, g,
@@ -620,7 +702,8 @@ def trunk_backward(pts, per_ray: dict, b1, weights: dict, g,
     """Grads of the trunk for the cotangent g [R, S, 4]: (g_pts, per-ray
     grads, db1, weight grads), as ``trunk_backward_plain`` returns them.
     Launches K2, or K3 when the forward's activations ``acts`` are given,
-    for CUDA tensors (bf16 or f32 compute), and runs the plain version for
+    for CUDA tensors (bf16 or f32 compute; widths that are not multiples
+    of 32 run zero-padded, ``pad_trunk``), and runs the plain version for
     CPU tensors."""
     if pts.device.type == "cuda":
         return _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts,

@@ -15,7 +15,11 @@ the dx product and the dw product each read gp); K4
 (``csrc/layer_bwd.cu``) makes two: a row pass reads y and g once and
 writes gp, dx and db, then a tall split-K product (``csrc/xtg.cuh``)
 reads x and gp once for dw.  Its launch plan is
-``ops/plan.py::layer_bwd_plan``.
+``ops/plan.py::layer_bwd_plan`` in the layout ``plan.k4_layout`` picks
+by shape before the launch: K and N
+that are not multiples of 16 run zero-padded (``pad_layer``), and bf16
+wider than ``plan.K4_MAX_WIDTH`` runs the row pass with w read from
+global memory, f32's layout, instead of keeping w in shared memory.
 
 ``linear_relu_bwd`` launches K4 for CUDA tensors and runs
 ``linear_relu_bwd_plain`` for CPU tensors; it counts its launches
@@ -62,6 +66,17 @@ def linear_relu_bwd_plain(x, w, b, y, g, cd=None):
     return dx, dw, _unbroadcast(gpf, b.shape)
 
 
+def pad_layer(x, w, b, y, g, k: int, n: int):
+    """K4's operands at widths ``k`` (x's last axis, w's rows) and ``n``
+    (w's columns, b, y and g), zero-padded.  Padding is exact: a padded
+    input column meets zero weight rows, and a padded output column has
+    y = 0, so its gp, dw column and db are 0."""
+    K, N = w.shape
+    F = torch.nn.functional
+    return (F.pad(x, (0, k - K)), F.pad(w, (0, n - N, 0, k - K)),
+            F.pad(b, (0, n - N)), F.pad(y, (0, n - N)), F.pad(g, (0, n - N)))
+
+
 @functools.cache
 def _kernel_lib():
     """K4's library, built on first use, with every entry point typed."""
@@ -100,9 +115,6 @@ def _layer_bwd_cuda(x, w, b, y, g, cd):
     if w.dim() != 2:
         raise ValueError(f"K4: w must be [K, N], got {tuple(w.shape)}")
     K, N = w.shape
-    if K % 16 or N % 16:
-        raise ValueError(f"K4 needs K and N that are multiples of 16, got "
-                         f"w {tuple(w.shape)}")
     if x.shape[-1] != K or y.shape != x.shape[:-1] + (N,) or (
             g.shape != y.shape):
         raise ValueError(f"K4: x {tuple(x.shape)}, w {tuple(w.shape)}, y "
@@ -123,8 +135,13 @@ def _layer_bwd_cuda(x, w, b, y, g, cd):
                          f"{tuple(b.shape)}")
     if M == 0:
         raise ValueError("K4 needs at least one row")
+    K0, N0 = K, N
+    K, N, w_in_smem = plan.k4_layout(K0, N0, ct.itemsize)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = plan.layer_bwd_plan(M, S, K, N, per_ray, ct.itemsize, n_sm)
+    pl = plan.layer_bwd_plan(M, S, K, N, per_ray, ct.itemsize, n_sm,
+                             w_in_smem)
+    if (K, N) != (K0, N0):
+        x, w, b, y, g = pad_layer(x, w, b, y, g, K, N)
     xf = _operand(x, ct, tuple(x.shape), "x", dev)
     yf = _operand(y, ct, tuple(y.shape), "y", dev)
     gf = _operand(g, ct, tuple(g.shape), "g", dev)
@@ -144,8 +161,8 @@ def _layer_bwd_cuda(x, w, b, y, g, cd):
         ptrs = (ctypes.c_void_p * 7)(*(
             None if t is None else t.data_ptr()
             for t in (wc, yf, gf, gp, dx, db_rows, db_part)))
-        dims = (ctypes.c_longlong * 7)(M, S, K, N, G, rp["smem"],
-                                       rp["tile_rows"])
+        dims = (ctypes.c_longlong * 8)(M, S, K, N, G, rp["smem"],
+                                       rp["tile_rows"], int(rp["w_in_smem"]))
         f32_flag = int(ct == f32)
         _check(lib, lib.layer_bwd_rows(ptrs, dims, f32_flag, stream),
                "row pass launch")
@@ -163,7 +180,8 @@ def _layer_bwd_cuda(x, w, b, y, g, cd):
                 db_part.data_ptr(), db.data_ptr(), G, N), 1, stream),
                    "db sum launch")
     linear_relu_bwd.launches += 1
-    return dx, dw, db_rows.view(R, 1, N) if per_ray else db
+    db = db_rows.view(R, 1, N) if per_ray else db
+    return dx[..., :K0], dw[:K0, :N0], db[..., :N0]
 
 
 def _check(lib, err, what):
@@ -177,8 +195,8 @@ def linear_relu_bwd(x, w, b, y, g, cd=None):
     ``linear_relu_bwd_plain`` returns them, for x [..., K], w [K, N] and
     b [N] or per-ray [R, 1, N] with x [R, S, K].  Launches K4 for CUDA
     tensors (bf16 operands with ``cd`` bfloat16, or f32 with ``cd``
-    None; K and N multiples of 16) and runs the plain version for CPU
-    tensors."""
+    None; any K and N, see ``plan.k4_layout``) and runs the plain version
+    for CPU tensors."""
     if x.device.type == "cuda":
         return _layer_bwd_cuda(x, w, b, y, g, cd)
     if x.device.type == "cpu":

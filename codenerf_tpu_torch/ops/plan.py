@@ -21,15 +21,32 @@ XTG_ROWS = 64               # rows per chunk of the dW products
 XTG_TILE = {2: (128, 256), 4: (64, 64)}   # (kd, nd) per tile by element size
 XTG_SMEM = {2: 4 * 64 * (128 + 256) * 2 + 1024, 4: 32 * (64 + 64) * 4}
 XTG_MAX_PRODUCTS = 8
-K4_MAX_WIDTH = 256          # bf16 K4 keeps w [K, N] in shared memory
+TRUNK_MULTIPLE = 32         # K1-K3 take hidden and code widths that are
+                            # multiples of this; the wrappers zero-pad
+K4_MULTIPLE = 16            # K4 takes K and N that are multiples of this
+K4_GLOBAL_ROWS = 32         # rows per tile of K4's global-memory-w layout
+K4_MAX_WIDTH = 256          # bf16 K4 keeps w [K, N] in shared memory up to
+                            # this width; wider, it takes the layout of f32
+                            # K4 (w read from global memory), chosen by
+                            # shape in ``k4_layout``
 K1_MAX_WIDTH = 256          # bf16 K1: a wgmma's N, and one layer's output
-                            # held in a warpgroup's registers
+                            # held in a warpgroup's registers; wider, K1
+                            # runs the row-tile forward of trunk_common.cuh
+                            # in bf16, chosen by shape in ``k1_plan``
 K1_TILE = 128               # bf16 K1: rows per tile, 64 per warpgroup
 K1_STAGES = 4               # bf16 K1: weight chunks in flight
 K1_CHUNK_K = 64             # bf16 K1: reduction columns per weight chunk
 K1_RAYS = 4                 # bf16 K1: rays of per-ray rows staged per tile
 K1_MAX_BANDS = 10           # bf16 K1: the encode's 3 F arguments fit 32
-                            # columns (sin at 0, cos at 32, x at 64)
+                            # columns (sin at 0, cos at 32, x at 64); more
+                            # bands take the row-tile forward, as above
+
+
+def padded(n: int, multiple: int) -> int:
+    """``n`` rounded up to a multiple of ``multiple``: the width a kernel
+    runs a layer at, zero-padded (zero weights, biases and per-ray rows,
+    so padded units stay 0 through every relu and their gradients are 0)."""
+    return -(-n // multiple) * multiple
 
 
 def tile_rows(elem: int) -> int:
@@ -170,6 +187,24 @@ def trunk_fwd_wgmma_plan(R: int, S: int, H: int, SC: int, F: int,
             "image_bytes": chunks[-1][1] + chunks[-1][2]}
 
 
+def k1_plan(R: int, S: int, H: int, SC: int, F: int, elem: int,
+            n_sm: int) -> dict:
+    """K1's launch, chosen by shape before any launch: the widths padded
+    to ``TRUNK_MULTIPLE`` ("h", "sc"), and the route.  bf16 at padded
+    widths up to ``K1_MAX_WIDTH`` and at most ``K1_MAX_BANDS`` bands runs
+    the persistent wgmma kernel ("wgmma", ``trunk_fwd_wgmma_plan``);
+    everything else, f32 and the wider bf16 shapes, the row-tile forward
+    of ``trunk_common.cuh`` ("rows", ``trunk_fwd_plan``), which K2's
+    recompute also runs and which rounds where bf16 K1 rounds."""
+    h, sc = padded(H, TRUNK_MULTIPLE), padded(SC, TRUNK_MULTIPLE)
+    if (elem == 2 and max(h, sc) <= K1_MAX_WIDTH
+            and 1 <= F <= K1_MAX_BANDS):
+        return dict(trunk_fwd_wgmma_plan(R, S, h, sc, F, n_sm),
+                    route="wgmma", h=h, sc=sc)
+    return dict(trunk_fwd_plan(R, S, h, sc, F, elem), route="rows", h=h,
+                sc=sc)
+
+
 def xtg_plan(products, elem: int, n_sm: int) -> dict:
     """The split-K plan of tall products C[kd, nd] = A^T B over M rows.
 
@@ -238,39 +273,56 @@ def trunk_bwd_plan(R: int, S: int, H: int, SC: int, F: int, has_x: bool,
             "gemm": gemm}
 
 
-def layer_bwd_smem(K: int, N: int, elem: int) -> int:
-    if elem == 2:
+def layer_bwd_smem(K: int, N: int, elem: int, w_in_smem: bool) -> int:
+    if w_in_smem:
         # w and gp in 64-column blocks, the dx tile, db, alignment slack
         ncb = -(-N // 64)
         return (ncb * (K4_MAX_WIDTH * 128 + 64 * 128) + 64 * (K + 8) * 2
                 + N * 4 + 1024)
-    # the gp tile (row stride N + 4) and db
-    return tile_rows(4) * (N + 4) * 4 + N * 4
+    # the f32 gp tile (row stride N + 4) and db, in either element type
+    return K4_GLOBAL_ROWS * (N + 4) * 4 + N * 4
 
 
 def layer_bwd_plan(M: int, S: int, K: int, N: int, per_ray: bool, elem: int,
-                   n_sm: int) -> dict:
+                   n_sm: int, w_in_smem: bool | None = None) -> dict:
     """K4: the row pass (mask, dx, db) as a persistent grid whose blocks
-    own whole rays (whole tiles for a bias), then dw = x^T gp."""
-    if K % 16 or N % 16:
+    own whole rays (whole tiles for a bias), then dw = x^T gp.  The row
+    pass keeps w in shared memory for ``wgmma`` (``w_in_smem``, bf16 only,
+    K and N at most ``K4_MAX_WIDTH``; the default in bf16) or reads it
+    from global memory on the CUDA cores (f32, and the default there)."""
+    if w_in_smem is None:
+        w_in_smem = elem == 2
+    if K % K4_MULTIPLE or N % K4_MULTIPLE:
         raise ValueError(f"K4 needs K and N that are multiples of 16, got "
                          f"w ({K}, {N})")
-    if elem == 2 and (K > K4_MAX_WIDTH or N > K4_MAX_WIDTH):
+    if w_in_smem and (elem != 2 or K > K4_MAX_WIDTH or N > K4_MAX_WIDTH):
         raise ValueError(f"K4 in bfloat16 keeps w in shared memory: K and N "
                          f"at most {K4_MAX_WIDTH}, got w ({K}, {N})")
     if M < 1 or (per_ray and M % S):
         raise ValueError(f"K4 needs whole rays, got M={M}, S={S}")
-    tm = tile_rows(elem)
-    smem = layer_bwd_smem(K, N, elem)
-    _check_smem(f"K4 at N={N}", smem)
+    tm = tile_rows(2) if w_in_smem else K4_GLOBAL_ROWS
+    smem = layer_bwd_smem(K, N, elem, w_in_smem)
+    _check_smem(f"K4 at w ({K}, {N})", smem)
     units = M // S if per_ray else -(-M // tm)
-    grid = min(units, n_sm * blocks_per_sm(smem, 1 if elem == 2 else 2))
+    grid = min(units, n_sm * blocks_per_sm(smem, 1 if w_in_smem else 2))
     unit = S if per_ray else tm
     rows = [(u0 * unit, min(u1 * unit, M))
             for u0, u1 in even_ranges(units, grid)]
     return {"rows": {"tile_rows": tm, "smem": smem, "grid": grid,
-                     "row_ranges": rows},
+                     "row_ranges": rows, "w_in_smem": w_in_smem},
             "gemm": xtg_plan([(M, K, N)], elem, n_sm)}
+
+
+def k4_layout(K: int, N: int, elem: int) -> tuple:
+    """(k, n, w_in_smem): K4's widths padded to ``K4_MULTIPLE`` and its
+    row-pass layout, chosen by shape: w in shared memory in bf16 up to
+    ``K4_MAX_WIDTH``, else read from global memory.  Raises
+    ``ValueError`` naming the widths when shared memory cannot hold the
+    row pass's tile even then."""
+    k, n = padded(K, K4_MULTIPLE), padded(N, K4_MULTIPLE)
+    w_in_smem = elem == 2 and max(k, n) <= K4_MAX_WIDTH
+    _check_smem(f"K4 at w ({K}, {N})", layer_bwd_smem(k, n, elem, w_in_smem))
+    return k, n, w_in_smem
 
 
 def xtg_rows(gemm: dict, operands, part_ptr: int) -> list:

@@ -237,7 +237,7 @@ def test_batch_iterator_draws_jax_indices(cars):
                                   "LLFFDataset"])
 def test_build_dataset_refuses_blender_and_llff(kind):
     cfg = config_from_dict({"dataset": {"type": kind, "basedir": "x"}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         build_dataset(cfg.dataset, "train")
     with pytest.raises(ValueError, match="unknown dataset type"):
         build_dataset(config_from_dict(

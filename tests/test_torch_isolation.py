@@ -4,7 +4,7 @@ That machine has torch, numpy and the standard library but no JAX, no
 PyYAML and no imageio, and the port must not reach into the JAX package
 (whose ``__init__`` imports jax).  A subprocess refuses those imports,
 loads every module of the port and chip_smoke.py, reads the flagship
-YAML through ``yaml_lite`` and runs the train CLI's ``--help``; the
+YAML through ``yaml_lite`` and runs the train and eval CLIs' ``--help``; the
 flagship settings come from ``SRN_CARS_CODE``, which must say what the
 YAML says.
 """
@@ -59,19 +59,21 @@ assert {"codenerf_tpu_torch.config.schema",
         "codenerf_tpu_torch.data.srn", "codenerf_tpu_torch.data.loader",
         "codenerf_tpu_torch.utils.logging", "codenerf_tpu_torch.harness",
         "codenerf_tpu_torch.train.checkpoint", "codenerf_tpu_torch.train.loop",
-        "codenerf_tpu_torch.train_cli"} <= set(names)
+        "codenerf_tpu_torch.train_cli", "codenerf_tpu_torch.eval_cli",
+        "codenerf_tpu_torch.eval.capacity"} <= set(names)
 from codenerf_tpu_torch.config import load_config
 assert load_config("configs/srn-cars-code.yml") == cfg
 import contextlib, io, runpy
-sys.argv = ["train_cli", "--help"]
-help_text = io.StringIO()
-try:
-    with contextlib.redirect_stdout(help_text):
-        runpy.run_module("codenerf_tpu_torch.train_cli", run_name="__main__")
-except SystemExit as e:
-    assert e.code == 0, e.code
-assert "--load-checkpoint" in help_text.getvalue()
-assert "--device" in help_text.getvalue()
+for cli in ("train_cli", "eval_cli"):
+    sys.argv = [cli, "--help"]
+    help_text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(help_text):
+            runpy.run_module("codenerf_tpu_torch." + cli, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    assert "--load-checkpoint" in help_text.getvalue()
+    assert "--device" in help_text.getvalue()
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("isolated ok", len(names))
@@ -85,7 +87,7 @@ def _env():
 
 
 def test_port_and_smoke_import_without_jax_yaml_triton():
-    """Also without imageio; the train CLI's --help runs there."""
+    """Also without imageio; the train and eval CLIs' --help run there."""
     out = subprocess.run([sys.executable, "-c", ISOLATED], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)

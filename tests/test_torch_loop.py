@@ -207,9 +207,9 @@ def test_ssim_matches_jax(shape):
 
 
 def test_harness_refusals(synth_root, tmp_path):
-    for key, item in (("runtime.num_devices=2", "item 6"),
-                      ("runtime.int8_serving=True", "item 5"),
-                      ("dataset.type=llff", "item 4")):
+    for key, item in (("runtime.num_devices=2", "item 3"),
+                      ("runtime.int8_serving=True", "item 2"),
+                      ("dataset.type=llff", "item 1")):
         cfg = load_config(BASE, _overrides(synth_root, tmp_path) + [key])
         with pytest.raises(NotImplementedError, match=item):
             Harness.from_config(cfg, device="cpu")
@@ -229,7 +229,7 @@ def test_cli_defaults_to_cuda_and_refuses_devices(synth_root, tmp_path,
     argv = ["-c", str(BASE)] + _overrides(synth_root, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(argv)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         train_cli.main(argv + ["--device", "cpu", "-g", "2"])
 
 
