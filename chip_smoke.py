@@ -4,9 +4,10 @@
 Drives the port's serving render, train step, test-time optimization
 (TTO), train entry point and eval entry point on one NVIDIA card at the
 flagship width of ``configs/srn-cars-code.yml`` (values from
-``SRN_CARS_CODE``; the cli and eval phases read the file itself) with
-random weights from a seed, and the eval phase with the committed
-trained weights:
+``SRN_CARS_CODE``; the cli and eval phases read the file itself), and
+vanilla NeRF at the widths of ``configs/lego.yml``, ``fern.yml`` and
+``srn-cars.yml``, with random weights from a seed, and the eval phase
+with the committed trained weights:
 
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``), K2 / K3
@@ -28,7 +29,11 @@ trained weights:
                / K3 at hidden 288, codes 80, 12 xyz bands (bf16 K1's
                row-tile route) and at hidden 48, codes 40 (zero-padded to
                64; bf16 and f32), K4 at w (48, 288) in bf16 (w read from
-               global memory) and w (40, 24) (padded; bf16 and f32).
+               global memory) and w (40, 24) (padded; bf16 and f32); and
+               past what a full row tile holds: K1-K3 at hidden and codes
+               864 (bf16 and f32, half tiles) and 1760 (quarter tiles),
+               K4 at w (64, 1760) (a half tile) and (16, 3520) (a
+               quarter).
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
                with K1 (``use_pallas``; K1's launch count must rise by
                exactly 8), the same image with the plain trunk (PSNR gate
@@ -112,10 +117,32 @@ trained weights:
                the launches the subprocess counted; gates: exit 0, 8 finite
                rows, K1 and K2 launched, mean PSNR >= 22 dB; and the
                port's SSIM on the card against the CPU's (1e-4).
- 10. result  — the kernel table as one JSON line (with each kernel's
-               launches per TTO step, in the cli legs and in the eval), the
-               card line, and the last line ``{"ok": true, "device":
-               {...}}``.
+ 10. vanilla — vanilla NeRF (FlexibleNeRF) at the full widths of
+               ``configs/lego.yml``, ``fern.yml`` and ``srn-cars.yml``, K4
+               under ``pallas_layer_bwd``: K4 against its plain version at
+               the lego and fern steps' shapes (bias b at K = N = 256 and
+               64, per-ray b at N = h/2; S = 64 and 192; bf16 1e-2 and f32
+               1e-4, bit-identical, timed with the plain and library
+               versions); a Blender tree (16 train and 4 val RGBA views,
+               256x256 written, 128x128 read) a seeded teacher renders,
+               then (a) one lego step of 1 x 16384 rays with K4 against the
+               plain-version step and the xla step (gradient relRMS 1e-2
+               per leaf), (b) 10 steps in each runtime (xla, layer_bwd: 16
+               K4 launches a step; ms, rays/s, a falling fine loss), a
+               profile of the K4 step, (c) one f32 step against the plain
+               versions (1e-4); an LLFF tree (poses_bounds.npy, 20 PNGs of
+               504x378 in images_8/) rendered in NDC, 5 fern steps (10 K4
+               launches a step, the loss falls) and a 32x24 NDC image on
+               the card against the CPU (40 dB); the train CLI on lego.yml
+               in a subprocess at the YAML's 16 x 16384 rays in 16 ray
+               chunks with K4 (3 steps, a validation, a checkpoint; yaml
+               and imageio unimportable; peak memory), its checkpoint
+               restored bit-identically, the eval CLI on it (finite PSNR);
+               and 3 steps of srn-cars.yml on the cli phase's SRN tree.
+ 11. result  — the kernel table as one JSON line (with each kernel's
+               launches per TTO step, in the cli legs, in the eval and in
+               the vanilla steps), the card line, and the last line
+               ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
 raises and exits nonzero without the last line.  Imports only torch, numpy,
@@ -156,7 +183,7 @@ from codenerf_tpu_torch.eval import (
     make_multiview_se3_refine_step, make_multiview_tto_step,
     make_se3_refine_step, make_tto_step)
 from codenerf_tpu_torch.models import (CodeNeRF, CodeNeRFConfig, CodeTables,
-                                       lookup_codes)
+                                       build_model, lookup_codes)
 from codenerf_tpu_torch.ops import _build, fused, layer_bwd, plan
 from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           kernel_weights, per_ray_parts,
@@ -632,27 +659,44 @@ def k4_cost(M, R, K, N, per_ray, es) -> dict:
             "bytes": M * (2 * K + 2 * N) * es + K * N * es + K * N * 4 + db}
 
 
-# K4's cases: (name, R, S, per_ray, dtype); the coarse and fine shapes are
-# the flagship step's (layer_xyz2 and layer_dir1 per-ray, layer_dir2 a
-# bias), f32 the synth-smoke config's type, odd a masked tail tile
-K4_CASES = (("coarse per-ray", 16384, 32, True, torch.bfloat16),
-            ("coarse bias", 16384, 32, False, torch.bfloat16),
-            ("fine per-ray", 16384, 160, True, torch.bfloat16),
-            ("fine bias", 16384, 160, False, torch.bfloat16),
-            ("f32 per-ray", 1024, 32, True, torch.float32),
-            ("f32 bias", 1024, 32, False, torch.float32),
-            ("odd per-ray", 1000, 24, True, torch.bfloat16),
-            ("odd bias", 1000, 24, False, torch.bfloat16))
+# K4's cases: (name, R, S, per_ray, dtype, K, N); the coarse and fine
+# shapes are the flagship step's (layer_xyz2 and layer_dir1 per-ray,
+# layer_dir2 a bias), f32 the synth-smoke config's type, odd a masked tail
+# tile; bf16 cases at R >= 4096 (the steps' rays) are timed
+K4_CASES = (("coarse per-ray", 16384, 32, True, torch.bfloat16, 256, 256),
+            ("coarse bias", 16384, 32, False, torch.bfloat16, 256, 256),
+            ("fine per-ray", 16384, 160, True, torch.bfloat16, 256, 256),
+            ("fine bias", 16384, 160, False, torch.bfloat16, 256, 256),
+            ("f32 per-ray", 1024, 32, True, torch.float32, 256, 256),
+            ("f32 bias", 1024, 32, False, torch.float32, 256, 256),
+            ("odd per-ray", 1000, 24, True, torch.bfloat16, 256, 256),
+            ("odd bias", 1000, 24, False, torch.bfloat16, 256, 256))
+# K4 at the FlexibleNeRF steps' shapes: lego.yml (hidden 256: trunk layers
+# and fc_feat a bias at K = N = 256, layer_dir1 per-ray at N = h/2 = 128;
+# 16384 rays, S = 64 coarse and 192 fine) and fern.yml (hidden 64, N = 32
+# per-ray; 4096 rays), in bf16 and in f32
+K4_VANILLA_CASES = (
+    ("lego coarse bias", 16384, 64, False, torch.bfloat16, 256, 256),
+    ("lego fine bias", 16384, 192, False, torch.bfloat16, 256, 256),
+    ("lego coarse per-ray", 16384, 64, True, torch.bfloat16, 256, 128),
+    ("lego fine per-ray", 16384, 192, True, torch.bfloat16, 256, 128),
+    ("fern coarse bias", 4096, 64, False, torch.bfloat16, 64, 64),
+    ("fern fine bias", 4096, 192, False, torch.bfloat16, 64, 64),
+    ("fern coarse per-ray", 4096, 64, True, torch.bfloat16, 64, 32),
+    ("fern fine per-ray", 4096, 192, True, torch.bfloat16, 64, 32),
+    ("f32 lego bias", 1024, 192, False, torch.float32, 256, 256),
+    ("f32 lego per-ray", 1024, 192, True, torch.float32, 256, 128),
+    ("f32 fern bias", 1024, 192, False, torch.float32, 64, 64),
+    ("f32 fern per-ray", 1024, 192, True, torch.float32, 64, 32))
 
 
-def check_k4(K, N, card) -> list:
+def check_k4(cases, card, seed=SEED + 6) -> list:
     """K4 against its plain version on the card: dx, dw and db at relRMS
     <= 1e-2 (1e-4 in f32) and bit-identical across two calls, at every case of
-    ``K4_CASES``; kernel, plain and library times at the flagship step's
-    shapes."""
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    ``cases``; kernel, plain and library times at the steps' shapes."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     rows = []
-    for name, R, S, per_ray, dt in K4_CASES:
+    for name, R, S, per_ray, dt, K, N in cases:
         cd = torch.bfloat16 if dt == torch.bfloat16 else None
         bound = 1.0 / K ** 0.5
         x = torch.relu(torch.randn(R, S, K, generator=gen)).to(dt).cuda()
@@ -687,11 +731,12 @@ def check_k4(K, N, card) -> list:
                                / torch.linalg.norm(e.float())))
         del got, again, want
         worst = max(errs, key=lambda k: errs[k][1])
-        row = {"case": name, "R": R, "S": S, "per_ray": per_ray,
-               "dtype": str(dt).replace("torch.", ""),
+        row = {"case": name, "R": R, "S": S, "K": K, "N": N,
+               "per_ray": per_ray, "dtype": str(dt).replace("torch.", ""),
                "max_abs_err": max(v[0] for v in errs.values()),
                "rel_rms": errs[worst][1], "worst": worst}
-        line = (f"K4 {name} R={R} S={S} {row['dtype']}: every output "
+        line = (f"K4 {name} R={R} S={S} w ({K}, {N}) {row['dtype']}: every "
+                f"output "
                 f"bit-identical across two calls; max_abs_err / rel_rms: "
                 + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
                             for k, v in errs.items()))
@@ -700,7 +745,7 @@ def check_k4(K, N, card) -> list:
             raise RuntimeError(f"K4 disagrees with its plain version in "
                                f"case {name}: {worst} relRMS "
                                f"{errs[worst][1]} > {gate}")
-        if R == 16384:
+        if R >= 4096 and dt == torch.bfloat16:
             wc = w.to(dt)
 
             def library():
@@ -736,14 +781,23 @@ def check_k4(K, N, card) -> list:
 # widths past the limits the kernels once had (plan.py): hidden and code
 # widths that are not multiples of 32 run zero-padded; bf16 K1 wider than
 # K1_MAX_WIDTH or with more than K1_MAX_BANDS bands runs the row-tile
-# forward; bf16 K4 wider than K4_MAX_WIDTH reads w from global memory
-WIDTH_CASES = (("h288 s80 F12", 288, 80, 12, torch.bfloat16),
-               ("h48 s40 F10", 48, 40, 10, torch.bfloat16),
-               ("h48 s40 F10 f32", 48, 40, 10, torch.float32))
-K4_WIDTH_CASES = (("w (48, 288)", 48, 288, torch.bfloat16),
-                  ("w (40, 24)", 40, 24, torch.bfloat16),
-                  ("w (40, 24) f32", 40, 24, torch.float32))
-WIDTH_R, WIDTH_S = 2048, 64
+# forward; bf16 K4 wider than K4_MAX_WIDTH reads w from global memory;
+# rows too wide for a full row tile run a half or a quarter tile
+# (plan.row_tile: hidden 864 a half and 1760 a quarter in K1-K3; N = 1760
+# a half and 3520 a quarter in K4).  The last field is R
+WIDTH_CASES = (("h288 s80 F12", 288, 80, 12, torch.bfloat16, 2048),
+               ("h48 s40 F10", 48, 40, 10, torch.bfloat16, 2048),
+               ("h48 s40 F10 f32", 48, 40, 10, torch.float32, 2048),
+               ("h864 s864 F6", 864, 864, 6, torch.bfloat16, 128),
+               ("h864 s864 F6 f32", 864, 864, 6, torch.float32, 128),
+               ("h1760 s1760 F6", 1760, 1760, 6, torch.bfloat16, 64),
+               ("h1760 s1760 F6 f32", 1760, 1760, 6, torch.float32, 64))
+K4_WIDTH_CASES = (("w (48, 288)", 48, 288, torch.bfloat16, 2048),
+                  ("w (40, 24)", 40, 24, torch.bfloat16, 2048),
+                  ("w (40, 24) f32", 40, 24, torch.float32, 2048),
+                  ("w (64, 1760)", 64, 1760, torch.bfloat16, 256),
+                  ("w (16, 3520)", 16, 3520, torch.bfloat16, 64))
+WIDTH_S = 64
 
 
 def _errs(got: dict, again: dict, want: dict, label: str) -> dict:
@@ -777,14 +831,15 @@ def _gate_widths(label, errs, gate) -> dict:
 
 def check_widths(card) -> dict:
     """K1, K2, K3 and K4 at widths past the limits the kernels once had,
-    against their plain versions at R = 2048, S = 64 (K4: M = R S rows,
-    per-ray rows), with the gates of the kernels phase (relRMS 1e-2 in
-    bf16, 1e-4 in f32) and bit-identity across two calls.  K1's route is
-    the one ``plan.k1_plan`` picked."""
+    against their plain versions at each case's R, S = 64 (K4: M = R S
+    rows, per-ray rows), with the gates of the kernels phase (relRMS 1e-2
+    in bf16, 1e-4 in f32) and bit-identity across two calls.  K1's route
+    and every row pass's tile rows are the ones the plans picked."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
     out = {"K1": [], "K2": [], "K3": [], "K4": []}
-    R, S = WIDTH_R, WIDTH_S
-    for name, H, SC, F, cd in WIDTH_CASES:
+    S = WIDTH_S
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, H, SC, F, cd, R in WIDTH_CASES:
         gate = REL_RMS_GATE if cd == torch.bfloat16 else F32_REL_RMS_GATE
         cfg = CodeNeRFConfig(hidden_size=H, shape_code_size=SC,
                              texture_code_size=SC, num_encoding_fn_xyz=F,
@@ -801,6 +856,11 @@ def check_widths(card) -> dict:
         _, launch = fused.trunk_forward_launcher(pts, per_ray, weights,
                                                  compute_dtype=cd)
         route = launch.route
+        es = 2 if cd == torch.bfloat16 else 4
+        hp, scp = (plan.padded(n, plan.TRUNK_MULTIPLE) for n in (H, SC))
+        k1_rows = plan.k1_plan(R, S, H, SC, F, es, n_sm)["tile_rows"]
+        bwd_rows = plan.trunk_bwd_plan(R, S, hp, scp, F, True, es, n_sm,
+                                       False)["rows"]["tile_rows"]
         before = trunk_forward.launches
         got, again = (trunk_forward(pts, per_ray, weights, compute_dtype=cd)
                       for _ in range(2))
@@ -810,9 +870,9 @@ def check_widths(card) -> dict:
             raise RuntimeError(f"K1 {name}: launched "
                                f"{trunk_forward.launches - before} times")
         out["K1"].append(dict(_gate_widths(
-            f"widths K1 {name} ({route} route)", _errs(
-                {"raw": got}, {"raw": again}, {"raw": want}, f"K1 {name}"),
-            gate), route=route))
+            f"widths K1 {name} R={R} ({route} route, {k1_rows}-row tiles)",
+            _errs({"raw": got}, {"raw": again}, {"raw": want},
+                  f"K1 {name}"), gate), route=route, tile_rows=k1_rows))
         _, acts = hybrid_forward_plain(pts, per_ray, weights,
                                        compute_dtype=cd)
         for kname, a in (("K2", None), ("K3", acts)):
@@ -822,11 +882,12 @@ def check_widths(card) -> dict:
                                 for f in (trunk_backward, trunk_backward,
                                           trunk_backward_plain))
             torch.cuda.synchronize()
-            out[kname].append(_gate_widths(
-                f"widths {kname} {name}",
-                _errs(got, again, want, f"{kname} {name}"), gate))
+            out[kname].append(dict(_gate_widths(
+                f"widths {kname} {name} R={R} ({bwd_rows}-row tiles)",
+                _errs(got, again, want, f"{kname} {name}"), gate),
+                tile_rows=bwd_rows))
         del model, acts
-    for name, K, N, dt in K4_WIDTH_CASES:
+    for name, K, N, dt, R in K4_WIDTH_CASES:
         gate = REL_RMS_GATE if dt == torch.bfloat16 else F32_REL_RMS_GATE
         cd = torch.bfloat16 if dt == torch.bfloat16 else None
         x = torch.relu(torch.randn(R, S, K, generator=gen)).to(dt).cuda()
@@ -835,6 +896,8 @@ def check_widths(card) -> dict:
         gg = (torch.randn(R, S, N, generator=gen) * 1e-3).to(dt).cuda()
         b = torch.zeros(R, 1, N, dtype=dt).cuda()
         k, n, w_in_smem = plan.k4_layout(K, N, x.element_size())
+        k4_rows = plan.layer_bwd_plan(R * S, S, k, n, True, x.element_size(),
+                                      n_sm, w_in_smem)["rows"]["tile_rows"]
         got, again, want = (dict(zip(("dx", "dw", "db"),
                                      f(x, w, b, y, gg, cd)))
                             for f in (linear_relu_bwd, linear_relu_bwd,
@@ -842,9 +905,10 @@ def check_widths(card) -> dict:
         torch.cuda.synchronize()
         layout = "w in shared memory" if w_in_smem else "w from global memory"
         out["K4"].append(dict(_gate_widths(
-            f"widths K4 {name} (padded to ({k}, {n}), {layout})",
+            f"widths K4 {name} R={R} (padded to ({k}, {n}), {layout}, "
+            f"{k4_rows}-row tiles)",
             _errs(got, again, want, f"K4 {name}"), gate),
-            layout=layout))
+            layout=layout, tile_rows=k4_rows))
     torch.cuda.empty_cache()
     print(f"widths: K1 K2 K3 K4 past the old limits agree with their plain "
           f"versions on {card}", flush=True)
@@ -971,9 +1035,9 @@ def mode_config(flags: dict):
 
 
 def grads_of(state) -> dict:
-    named = [(f"{k}.{n}", p) for k, m in state.models.items()
+    named = [(f"{'codes' if k == 'tables' else k}.{n}", p)
+             for k, m in state.modules().items()
              for n, p in m.named_parameters()]
-    named += [(f"codes.{n}", p) for n, p in state.tables.named_parameters()]
     return {n: p.grad.detach().clone() for n, p in named}
 
 
@@ -1483,10 +1547,14 @@ CLI_YAML = "configs/srn-cars-code.yml"
 # unimportable (None in sys.modules); its last line lists the modules of
 # yaml, imageio, jax or codenerf_tpu that were loaded
 REFUSED = ("yaml", "imageio", "jax", "codenerf_tpu")
-CLI_RUNNER = ("import json, runpy, sys; "
+CLI_RUNNER = ("import json, runpy, sys, torch; "
               "sys.modules.update(dict.fromkeys(('yaml', 'imageio'))); "
               "runpy.run_module('codenerf_tpu_torch.train_cli', "
               "run_name='__main__', alter_sys=True); "
+              "from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd; "
+              "print('stats ' + json.dumps({'peak_bytes': "
+              "torch.cuda.max_memory_allocated(), "
+              "'K4': linear_relu_bwd.launches})); "
               "print('loaded ' + json.dumps(sorted("
               "m for m, v in sys.modules.items() if v is not None and "
               f"m.split('.')[0] in {REFUSED!r})))")
@@ -1495,11 +1563,11 @@ OPENGL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
 
 
 def png_bytes(img: np.ndarray) -> tuple:
-    """uint8 [H, W, 3] as an RGB PNG, written with the standard library's
-    zlib, and the filter of each row.  Rows are filtered as an adaptive
-    encoder (libpng's, PIL's) filters them: each takes the one of the five
-    filters whose bytes, read as signed, have the least sum of absolute
-    values."""
+    """uint8 [H, W, 3] (or [H, W, 4]) as an RGB (RGBA) PNG, written with
+    the standard library's zlib, and the filter of each row.  Rows are
+    filtered as an adaptive encoder (libpng's, PIL's) filters them: each
+    takes the one of the five filters whose bytes, read as signed, have
+    the least sum of absolute values."""
     h, w, c = img.shape
     x = img.astype(np.int16).reshape(h, w * c)
     a = np.pad(x, ((0, 0), (c, 0)))[:, :-c]               # left
@@ -1521,7 +1589,8 @@ def png_bytes(img: np.ndarray) -> tuple:
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     return (PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                         6 if c == 4 else 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + chunk(b"IEND", b"")), kinds
 
@@ -1580,8 +1649,7 @@ def make_srn_tree(root: Path, size, dirs, teacher, tables) -> dict:
 def state_tensors(state) -> dict:
     """Every tensor of a train state by name (optimizer moments and steps
     under their parameter's name), the LRs and the steps."""
-    params = {f"{k}.{n}": p for k, m in
-              {**state.models, "tables": state.tables}.items()
+    params = {f"{k}.{n}": p for k, m in state.modules().items()
               for n, p in m.named_parameters()}
     out = {n: p.detach() for n, p in params.items()}
     names = {id(p): n for n, p in params.items()}
@@ -1608,14 +1676,15 @@ def jsonl(path: Path) -> list:
     return [json.loads(ln) for ln in path.read_text().splitlines()]
 
 
-def cli_phase(size, dirs, teacher, fused_ms, card) -> dict:
+def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
     """The train entry point on the card (phase 8): an SRN tree made on
     the card, ``run_training`` of the flagship YAML at its full widths for
     ``CLI_STEPS`` steps with K1 and K2 (``use_pallas`` +
     ``pallas_backward``, validation every 5 steps), the step-10 checkpoint
     restored bit-identically, and the train CLI in a subprocess resuming
     it to step 20.  ``fused_ms`` is the train phase's fused step, printed
-    beside the CLI's."""
+    beside the CLI's.  ``then(root, work)``, if given, runs on the SRN
+    tree before it is removed; its result is under "then"."""
     emb = SRN_CARS_CODE["models"]["embedding"]
     tables = CodeTables(10, emb["shape_code_size"],
                         emb["texture_code_size"], "cuda",
@@ -1810,6 +1879,7 @@ def cli_phase(size, dirs, teacher, fused_ms, card) -> dict:
               f"{leg2_val[0]['psnr']:.6g} dB SSIM {leg2_val[0]['ssim']:.6g}; "
               f"no module of {', '.join(REFUSED)} loaded; config.yml read "
               f"back by yaml_lite equal", flush=True)
+        after = then(root, work) if then else None
         print(f"cli: {step_ms:.6g} ms/step (fused train step {fused_ms:.6g}),"
               f" {rays / step_ms * 1e3:.6g} rays/s, validation "
               f"{val['ms']:.6g} ms, read_png {decode_ms:.6g} ms per image on "
@@ -1826,7 +1896,7 @@ def cli_phase(size, dirs, teacher, fused_ms, card) -> dict:
                 | {s: leg2[s]["nerf_loss_fine"] for s in (15, 20)},
                 "train_launches": train_launches,
                 "val_launches": val["launches"], "leg1_s": leg1_s,
-                "leg2_s": leg2_s, "images": tree["images"]}
+                "leg2_s": leg2_s, "images": tree["images"], "then": after}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2040,6 +2110,518 @@ def eval_phase(models, tables, dirs, card) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the vanilla phase: lego.yml (Blender), fern.yml (LLFF, NDC) and
+# srn-cars.yml (SRN) at their full widths, K4 under pallas_layer_bwd
+LEGO_YAML, FERN_YAML = "configs/lego.yml", "configs/fern.yml"
+SRN_CARS_YAML = "configs/srn-cars.yml"
+LEGO_SPLITS = (("train", 16), ("val", 4))
+LEGO_SIZE = 256                 # written; read at resolution_level 2
+LEGO_ANGLE_X = 0.6911112070083618   # nerf_synthetic lego's camera_angle_x
+LEGO_RADIUS = 4.0               # inside lego.yml's near 2 / far 6
+FERN_VIEWS = 20
+FERN_HW = (378, 504)            # fern's images_8 size
+FERN_HWF0 = (3024.0, 4032.0, 3260.0)   # the poses' full-size H, W, focal
+VANILLA_STEPS = 10
+FERN_STEPS = 5
+VANILLA_K4 = {"lego": 16, "fern": 10}  # launches per step and ray chunk
+VANILLA_CLI_STEPS = 3
+VANILLA_RUNTIMES = {"xla": {}, "layer_bwd": {"pallas_layer_bwd": True}}
+
+
+def vanilla_teacher(settings, seed):
+    """A seeded FlexibleNeRF pair at ``settings``' widths."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return {k: build_model(getattr(settings, f"{k}_cfg"), "cuda", gen)
+            for k in ("coarse", "fine")}
+
+
+def centred_dirs(h, w, focal):
+    K = torch.eye(4, device="cuda")
+    K[0, 0] = K[1, 1] = focal
+    K[0, 2], K[1, 2] = w / 2, h / 2
+    return pixel_directions(h, w, K)
+
+
+def write_png(path: Path, img: np.ndarray) -> None:
+    """``png_bytes`` of ``img`` to ``path``, read back equal by
+    ``read_png``."""
+    path.write_bytes(png_bytes(img)[0])
+    if not np.array_equal(read_png(path), img):
+        raise RuntimeError(f"read_png({path}) differs from the pixels "
+                           "written")
+
+
+def to_u8(rgb, h, w) -> np.ndarray:
+    return (rgb.clamp(0, 1) * 255).round().to(torch.uint8).reshape(
+        h, w, 3).cpu().numpy()
+
+
+def write_blender_tree(root: Path, settings, teacher) -> int:
+    """nerf_synthetic's layout, ``transforms_{train,val}.json`` and RGBA
+    PNGs of ``LEGO_SIZE``, rendered by ``teacher`` from poses on a sphere
+    of radius ``LEGO_RADIUS`` (alpha 255)."""
+    n = LEGO_SIZE
+    focal = 0.5 * n / np.tan(0.5 * LEGO_ANGLE_X)
+    render = make_image_renderer(settings, n, n, 8192, "cuda")
+    dirs = centred_dirs(n, n, focal)
+    rng = np.random.default_rng(SEED + 30)
+    count = 0
+    for stage, views in LEGO_SPLITS:
+        (root / stage).mkdir(parents=True)
+        frames = []
+        for v in range(views):
+            pose = pose_spherical(rng.uniform(0.3, 1.3),
+                                  rng.uniform(0.0, 2 * np.pi), LEGO_RADIUS,
+                                  device="cuda")
+            with torch.no_grad():
+                rgb = to_u8(render(teacher, dirs, pose, None, None), n, n)
+            alpha = np.full((n, n, 1), 255, np.uint8)
+            write_png(root / stage / f"r_{v}.png",
+                      np.concatenate([rgb, alpha], -1))
+            frames.append({"file_path": f"./{stage}/r_{v}",
+                           "transform_matrix": pose.cpu().tolist()})
+            count += 1
+        (root / f"transforms_{stage}.json").write_text(json.dumps(
+            {"camera_angle_x": LEGO_ANGLE_X, "frames": frames}))
+    return count
+
+
+def write_llff_tree(root: Path, cfg, seed) -> tuple:
+    """LLFF's layout, ``poses_bounds.npy`` and ``images_8/`` PNGs at
+    ``FERN_HW``: forward-facing cameras near the origin looking down -z,
+    stored as [down right back | t | hwf] with ``FERN_HWF0``; each view
+    rendered in NDC by a teacher in the frame the loader recentres the
+    poses to.  Returns (views, teacher, NDC settings)."""
+    from codenerf_tpu_torch.data.llff import _recenter_poses
+    rng = np.random.default_rng(SEED + 31)
+    c2w = np.tile(np.eye(4), (FERN_VIEWS, 1, 1))
+    for v in range(FERN_VIEWS):
+        a, b = rng.uniform(-0.08, 0.08, 2)
+        ca, sa, cb, sb = np.cos(a), np.sin(a), np.cos(b), np.sin(b)
+        c2w[v, :3, :3] = (np.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]])
+                          @ np.array([[cb, 0, sb], [0, 1, 0],
+                                      [-sb, 0, cb]]))
+        c2w[v, :3, 3] = [*rng.uniform(-0.15, 0.15, 2),
+                         rng.uniform(-0.05, 0.05)]
+    pb = np.zeros((FERN_VIEWS, 17))
+    for v in range(FERN_VIEWS):
+        right, up, back, t = c2w[v, :3, 0], c2w[v, :3, 1], c2w[v, :3, 2], \
+            c2w[v, :3, 3]
+        stored = np.stack([-up, right, back, t], axis=1)
+        pb[v, :15] = np.concatenate(
+            [stored, np.array(FERN_HWF0).reshape(3, 1)], axis=1).ravel()
+        pb[v, 15:] = [1.0, 20.0]
+    root.mkdir(parents=True)
+    np.save(root / "poses_bounds.npy", pb)
+    poses = _recenter_poses(c2w)             # what the loader will read
+    h, w = FERN_HW
+    focal = FERN_HWF0[2] * w / FERN_HWF0[1]
+    settings = dataclasses.replace(
+        RenderSettings.from_config(cfg), ndc=(float(h), float(w), focal),
+        near=0.0, far=1.0, spacing_mode="lindisp")
+    teacher = vanilla_teacher(settings, seed)
+    render = make_image_renderer(settings, h, w, 16384, "cuda")
+    dirs = centred_dirs(h, w, focal)
+    (root / "images_8").mkdir()
+    for v in range(FERN_VIEWS):
+        pose = torch.tensor(poses[v], dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            rgb = to_u8(render(teacher, dirs, pose, None, None), h, w)
+        write_png(root / "images_8" / f"img_{v:03d}.png", rgb)
+    return FERN_VIEWS, teacher, settings
+
+
+def vanilla_batch(harness, n_images):
+    """The first ``n_images`` train views as card tensors: (dirs, pose,
+    pixels, ids)."""
+    batch = BatchIterator(harness.train_dataset, n_images,
+                          seed=SEED).fixed_batch()
+    return (harness.directions,
+            torch.from_numpy(batch["pose"]).cuda(),
+            torch.from_numpy(batch["color"]).cuda(),
+            torch.from_numpy(batch["object_id"]).cuda())
+
+
+def vanilla_step(cfg, settings, batch, seed, plain=False, state=None):
+    """One train step from a state drawn from ``seed`` (or ``state``):
+    (state, grads, loss, fine loss, launches)."""
+    st = state or init_train_state(cfg, settings, 1, seed=seed,
+                                   device="cuda")
+    step = make_train_step(settings, st,
+                           cfg.nerf.ray_sampler.num_random_rays, 0.0, True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    before = launch_counts()
+    with plain_versions() if plain else contextlib.nullcontext():
+        m = step(*batch, gen)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    return st, grads_of(st), float(m.loss), float(m.loss_fine), launched
+
+
+def gate_grads(label, grads, want, gate) -> list:
+    rel = grad_rel_rms(grads, want)
+    worst = max(rel, key=rel.get)
+    print(f"{label}: gradient relRMS over {len(rel)} leaves: worst {worst} "
+          f"{rel[worst]:.4g}, median {statistics.median(rel.values()):.4g}",
+          flush=True)
+    if not rel[worst] <= gate:
+        raise RuntimeError(f"{label}: {worst} gradient relRMS {rel[worst]} "
+                           f"> {gate}")
+    return [worst, rel[worst]]
+
+
+def run_steps(step, batch, gen, n) -> tuple:
+    """``n`` steps: (ms per step, fine losses, losses, launches)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ms, fine, total = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = step(*batch, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fine.append(m.loss_fine)
+        total.append(m.loss)
+    return (ms, [float(v) for v in fine], [float(v) for v in total],
+            launch_counts())
+
+
+def lego_phase(work: Path, card) -> dict:
+    """lego.yml's model at full width on a Blender tree (phase 10a): one
+    step of 1 x 16384 rays with K4 against the plain versions and the
+    YAML's own xla runtime, ``VANILLA_STEPS`` timed steps in each
+    runtime, a profile of the K4 step, one f32 step against the plain
+    versions."""
+    root = work / "lego"
+    base = [f"dataset.basedir={root}", f"experiment.logdir={work}",
+            "experiment.id=lego_phase"]
+    cfg = load_config(ROOT / LEGO_YAML, base)
+    teacher = vanilla_teacher(RenderSettings.from_config(cfg), SEED + 32)
+    t0 = time.perf_counter()
+    n_img = write_blender_tree(root, RenderSettings.from_config(cfg),
+                               teacher)
+    del teacher
+    harness = Harness.from_config(cfg, device="cuda")
+    n_rays = cfg.nerf.ray_sampler.num_random_rays
+    print(f"vanilla lego: wrote {n_img} RGBA PNGs of {LEGO_SIZE}x{LEGO_SIZE} "
+          f"(16 train, 4 val) rendered by a seeded FlexibleNeRF teacher, "
+          f"read at resolution_level {cfg.dataset.resolution_level} as "
+          f"{harness.height}x{harness.width}, in "
+          f"{time.perf_counter() - t0:.4g} s; the train batch cut from "
+          f"{cfg.dataset.train_batch_size} images to 1 ({n_rays} rays a "
+          f"step)", flush=True)
+    batch = vanilla_batch(harness, 1)
+    out = {}
+    grads = {}
+    for mode, flags in VANILLA_RUNTIMES.items():
+        mcfg = load_config(ROOT / LEGO_YAML, base + [
+            f"runtime.{k}={v}" for k, v in flags.items()])
+        settings = RenderSettings.from_config(mcfg)
+        if trunk_path(settings) != "rays":
+            raise RuntimeError(f"lego {mode}: path {trunk_path(settings)}")
+        torch.cuda.reset_peak_memory_stats()
+        st, grads[mode], loss, fine, launched = vanilla_step(
+            mcfg, settings, batch, SEED + 33)
+        want = VANILLA_K4["lego"] if mode == "layer_bwd" else 0
+        if launched["K4"] != want or launched["K1"] + launched["K2"] + \
+                launched["K3"]:
+            raise RuntimeError(f"lego {mode} (a): launched {launched}")
+        row = {"loss_step_a": loss}
+        if mode == "layer_bwd":
+            _, plain_grads, plain_loss, _, plain_launched = vanilla_step(
+                mcfg, settings, batch, SEED + 33, plain=True)
+            if any(plain_launched.values()):
+                raise RuntimeError(f"lego plain step launched "
+                                   f"{plain_launched}")
+            print(f"vanilla lego layer_bwd (a): {n_rays} rays: loss kernels="
+                  f"{loss:.8g} plain={plain_loss:.8g}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3g} GiB",
+                  flush=True)
+            row["grad_rel_rms_worst"] = gate_grads(
+                "vanilla lego layer_bwd (a) vs plain", grads[mode],
+                plain_grads, REL_RMS_GATE)
+            row["grad_rel_rms_worst_vs_xla"] = gate_grads(
+                "vanilla lego layer_bwd (a) vs xla", grads[mode],
+                grads["xla"], REL_RMS_GATE)
+            if not abs(loss - plain_loss) <= 1e-3 * plain_loss:
+                raise RuntimeError(f"lego layer_bwd: loss {loss} vs plain "
+                                   f"{plain_loss}")
+            del plain_grads
+        # (b) timed steps from the state of (a)
+        step = make_train_step(settings, st, n_rays, 0.0, True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+        torch.cuda.reset_peak_memory_stats()
+        ms, fine, total, counts = run_steps(step, batch, gen, VANILLA_STEPS)
+        step_ms = statistics.median(ms)
+        per_step = {k: v / VANILLA_STEPS for k, v in counts.items()}
+        print(f"vanilla lego {mode} (b): {VANILLA_STEPS} steps of {n_rays} "
+              f"rays (1 image): median {step_ms:.6g} ms/step "
+              f"({n_rays / step_ms * 1e3:.6g} rays/s), first {ms[0]:.6g} ms; "
+              f"launches per step {per_step}; fine loss {fine[0]:.6g} -> "
+              f"{fine[-1]:.6g}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3g} GiB on "
+              f"{card}", flush=True)
+        if per_step["K4"] != want or not finite(total):
+            raise RuntimeError(f"lego {mode}: launches per step {per_step}, "
+                               f"losses {total}")
+        if not statistics.mean(fine[-3:]) < statistics.mean(fine[:3]):
+            raise RuntimeError(f"lego {mode}: the fine loss did not fall "
+                               f"({fine})")
+        row.update({"step_ms": step_ms, "step_ms_all": ms,
+                    "rays_per_s": n_rays / step_ms * 1e3,
+                    "launches_per_step": per_step, "loss_fine": fine,
+                    "peak_bytes": torch.cuda.max_memory_allocated()})
+        if mode == "layer_bwd":
+            row["profile"] = profile_step(
+                "vanilla lego layer_bwd", step, (*batch, gen), step_ms,
+                PROFILE_LABELS["layer_bwd"], card)
+        out[mode] = row
+        del st, step
+        torch.cuda.empty_cache()
+    del grads
+    # (c) f32 with K4 against the plain versions
+    f32_cfg = load_config(ROOT / LEGO_YAML, base + [
+        "runtime.compute_dtype=float32", "runtime.pallas_layer_bwd=True"])
+    settings = RenderSettings.from_config(f32_cfg)
+    _, g32, loss32, _, launched = vanilla_step(f32_cfg, settings, batch,
+                                               SEED + 35)
+    _, p32, plain32, _, _ = vanilla_step(f32_cfg, settings, batch, SEED + 35,
+                                         plain=True)
+    print(f"vanilla lego f32 layer_bwd: loss kernels={loss32:.8g} "
+          f"plain={plain32:.8g}; launches {launched}", flush=True)
+    out["f32"] = {"loss": loss32, "plain_loss": plain32,
+                  "launches": launched,
+                  "grad_rel_rms_worst": gate_grads(
+                      "vanilla lego f32 vs plain", g32, p32,
+                      F32_REL_RMS_GATE)}
+    if launched["K4"] != VANILLA_K4["lego"] or not (
+            abs(loss32 - plain32) <= 1e-4 * plain32):
+        raise RuntimeError(f"lego f32: launches {launched}, loss {loss32} "
+                           f"vs {plain32}")
+    del g32, p32
+    torch.cuda.empty_cache()
+    out["images"] = n_img
+    return out
+
+
+def fern_phase(work: Path, card) -> dict:
+    """fern.yml's model on an LLFF tree (phase 10b): ``FERN_STEPS`` steps
+    with K4 on NDC rays, and a 32x24 NDC image on the card against the
+    port's CPU path."""
+    root = work / "fern"
+    cfg = load_config(ROOT / FERN_YAML, [
+        f"dataset.basedir={root}", f"experiment.logdir={work}",
+        "experiment.id=fern_phase", "runtime.pallas_layer_bwd=True"])
+    t0 = time.perf_counter()
+    n_img, teacher, teacher_settings = write_llff_tree(root, cfg, SEED + 36)
+    harness = Harness.from_config(cfg, device="cuda")
+    s = harness.settings
+    # the harness takes the focal from the f32 intrinsic
+    if not np.allclose(s.ndc, teacher_settings.ndc, rtol=1e-6) or (
+            s.near, s.far, s.spacing_mode) != (0.0, 1.0, "lindisp"):
+        raise RuntimeError(f"fern: harness NDC {s.ndc} {s.near} {s.far} "
+                           f"{s.spacing_mode}, tree {teacher_settings.ndc}")
+    n_rays = cfg.nerf.ray_sampler.num_random_rays
+    print(f"vanilla fern: wrote poses_bounds.npy and {n_img} PNGs of "
+          f"{FERN_HW[1]}x{FERN_HW[0]} in images_8/ in "
+          f"{time.perf_counter() - t0:.4g} s; llffhold "
+          f"{cfg.dataset.llffhold}: {len(harness.train_dataset)} train, "
+          f"{len(harness.val_dataset)} val; NDC {s.ndc}", flush=True)
+    st = init_train_state(cfg, s, 1, seed=SEED + 37, device="cuda")
+    step = make_train_step(s, st, n_rays, 0.0, True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
+    ms, fine, total, counts = run_steps(step, vanilla_batch(harness, 1), gen,
+                                        FERN_STEPS)
+    per_step = {k: v / FERN_STEPS for k, v in counts.items()}
+    print(f"vanilla fern layer_bwd: {FERN_STEPS} steps of {n_rays} NDC rays: "
+          f"median {statistics.median(ms):.6g} ms/step, first {ms[0]:.6g} "
+          f"ms; launches per step {per_step}; fine loss {fine} on {card}",
+          flush=True)
+    if per_step["K4"] != VANILLA_K4["fern"] or not finite(total):
+        raise RuntimeError(f"fern: launches per step {per_step}, losses "
+                           f"{total}")
+    if not fine[-1] < fine[0]:
+        raise RuntimeError(f"fern: the fine loss did not fall ({fine})")
+    del st, step
+    # a small NDC image on the card and on the CPU
+    h, w = 24, 32
+    focal = s.ndc[2] * w / FERN_HW[1]
+    small = dataclasses.replace(s, ndc=(float(h), float(w), focal))
+    pose = torch.tensor(harness.val_dataset[0]["pose"], device="cuda")
+    img_gpu = make_image_renderer(small, h, w, 256, "cuda")(
+        teacher, centred_dirs(h, w, focal), pose, None, None)
+    cpu_models = {k: copy.deepcopy(m).to("cpu") for k, m in teacher.items()}
+    img_cpu = make_image_renderer(small, h, w, 256, "cpu")(
+        cpu_models, centred_dirs(h, w, focal).cpu(), pose.cpu(), None, None)
+    psnr = float(mse2psnr(torch.mean((img_gpu.cpu() - img_cpu) ** 2)))
+    print(f"vanilla fern render {w}x{h} NDC: PSNR(card vs CPU)={psnr:.6g} dB",
+          flush=True)
+    if not psnr >= PSNR_GATE:
+        raise RuntimeError(f"fern NDC card vs CPU image: {psnr} dB < "
+                           f"{PSNR_GATE}")
+    return {"step_ms": statistics.median(ms), "step_ms_all": ms,
+            "launches_per_step": per_step, "loss_fine": fine,
+            "ndc_psnr_card_vs_cpu": psnr, "images": n_img}
+
+
+def vanilla_cli(work: Path, card) -> dict:
+    """The train CLI on lego.yml in a subprocess (phase 10c, yaml and
+    imageio unimportable) at the YAML's batch with K4 and 16 ray chunks,
+    its checkpoint restored bit-identically here, then the eval CLI on
+    it."""
+    root = work / "lego"
+    overrides = [f"dataset.basedir={root}", f"experiment.logdir={work}",
+                 "experiment.id=lego_cli", "experiment.print_every=1",
+                 "experiment.validate_every=2",
+                 f"experiment.save_every={VANILLA_CLI_STEPS}",
+                 "runtime.pallas_layer_bwd=True", "runtime.ray_chunks=16"]
+    cmd = [sys.executable, "-c", CLI_RUNNER, "-c", LEGO_YAML, *overrides,
+           "--max-steps", str(VANILLA_CLI_STEPS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"lego train CLI exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    refused = json.loads(lines[-1][len("loaded "):])
+    stats = json.loads(lines[-2][len("stats "):])
+    logdir = work / "lego_cli"
+    recs = jsonl(logdir / "metrics.jsonl")
+    train = {r["step"]: r for r in recs if r["mode"] == "train"}
+    val = [r for r in recs if r["mode"] == "val"]
+    ckdir = logdir / "checkpoints"
+    cfg = load_config(ROOT / LEGO_YAML, overrides)
+    rays = cfg.dataset.train_batch_size * cfg.nerf.ray_sampler.num_random_rays
+    want_k4 = VANILLA_K4["lego"] * cfg.runtime.ray_chunks * VANILLA_CLI_STEPS
+    if (refused or sorted(train) != [1, 2, 3] or len(val) != 1
+            or checkpoint.latest_step(ckdir) != VANILLA_CLI_STEPS
+            or stats["K4"] != want_k4
+            or not finite([r["nerf_loss_fine"] for r in train.values()]
+                          + [val[0]["psnr"]])):
+        raise RuntimeError(f"lego train CLI: imported {refused}, train "
+                           f"{sorted(train)}, val {val}, K4 {stats['K4']} "
+                           f"(want {want_k4}), latest "
+                           f"{checkpoint.latest_step(ckdir)}")
+    # step 2 is warm and holds no validation (that runs after its log)
+    step_ms = train[2]["time_taken"] * 1e3
+    print(f"vanilla cli: python3 -m codenerf_tpu_torch.train_cli -c "
+          f"{LEGO_YAML} ({cfg.dataset.train_batch_size} x "
+          f"{cfg.nerf.ray_sampler.num_random_rays} = {rays} rays a step in "
+          f"{cfg.runtime.ray_chunks} chunks, pallas_layer_bwd; yaml and "
+          f"imageio unimportable): exit 0 in {cli_s:.4g} s; step 1 "
+          f"{train[1]['time_taken'] * 1e3:.6g} ms, step 2 {step_ms:.6g} ms "
+          f"({rays / step_ms * 1e3:.6g} rays/s); fine loss "
+          f"{[round(train[i]['nerf_loss_fine'], 6) for i in (1, 2, 3)]}; "
+          f"validation at 2 PSNR {val[0]['psnr']:.6g} dB; K4 launches "
+          f"{stats['K4']}; peak memory {stats['peak_bytes'] / 2**30:.4g} GiB "
+          f"on {card}", flush=True)
+    # the step-3 checkpoint restored into A, saved, restored into B
+    settings = RenderSettings.from_config(cfg)
+    a = init_train_state(cfg, settings, 1, seed=SEED + 40, device="cuda")
+    checkpoint.restore_checkpoint(ckdir, a, step=VANILLA_CLI_STEPS)
+    checkpoint.save_checkpoint(work / "lego_copy", a)
+    b = init_train_state(cfg, settings, 1, seed=SEED + 41, device="cuda")
+    checkpoint.restore_checkpoint(work / "lego_copy", b)
+    differ = bit_identical(state_tensors(a), state_tensors(b))
+    want_lr = [lr_at_step(cfg.optimizer.lr, cfg.optimizer.scheduler_gamma,
+                          cfg.optimizer.scheduler_step_size,
+                          VANILLA_CLI_STEPS)]
+    got_lr = [g["lr"] for g in a.optimizer.param_groups]
+    if differ or got_lr != want_lr or not a.optimizer.state or a.tables:
+        raise RuntimeError(f"lego restore: differ {differ}, lr {got_lr} "
+                           f"against {want_lr}")
+    harness = Harness.from_config(cfg, device="cuda")
+    batch = vanilla_batch(harness, 1)
+    for st in (a, b):
+        make_train_step(settings, st, cfg.nerf.ray_sampler.num_random_rays,
+                        0.0, True)(
+            *batch, torch.Generator(device="cuda").manual_seed(SEED))
+    differ_step = bit_identical(state_tensors(a), state_tensors(b))
+    if differ_step:
+        raise RuntimeError(f"lego: one step from A and B: {differ_step}")
+    print(f"vanilla cli restore: step {VANILLA_CLI_STEPS} -> A -> save -> B: "
+          f"{len(state_tensors(a))} tensors bit-identical, LR {got_lr} = "
+          f"lr_at_step, no code tables; one more step from each: "
+          f"bit-identical", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    # the eval CLI on the checkpoint: validate renders at the true pose
+    cmd = [sys.executable, "-c", EVAL_RUNNER, "-c", LEGO_YAML,
+           "--load-checkpoint", str(ckdir), "--rounds", "1",
+           f"dataset.basedir={root}", f"experiment.logdir={work}",
+           "experiment.id=lego_eval"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    eval_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"lego eval CLI exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.splitlines()[-1][len("result "):])
+    psnr = result["summary"][0]["psnr"]
+    print(f"vanilla cli eval: python3 -m codenerf_tpu_torch.eval_cli -c "
+          f"{LEGO_YAML} --load-checkpoint <step {VANILLA_CLI_STEPS}> "
+          f"--rounds 1: exit 0 in {eval_s:.4g} s, PSNR {psnr:.6g} dB at the "
+          f"val view's true pose; modules loaded {result['loaded']}",
+          flush=True)
+    if not finite([psnr]) or result["loaded"]:
+        raise RuntimeError(f"lego eval CLI: {result}")
+    return {"cli_s": cli_s, "step1_ms": train[1]["time_taken"] * 1e3,
+            "step_ms": step_ms, "rays_per_step": rays,
+            "rays_per_s": rays / step_ms * 1e3,
+            "peak_bytes": stats["peak_bytes"], "train_launches_K4":
+            stats["K4"], "val_psnr": val[0]["psnr"], "eval_s": eval_s,
+            "eval_psnr": psnr,
+            "loss_fine": [train[i]["nerf_loss_fine"] for i in (1, 2, 3)]}
+
+
+def srn_cars_steps(root: Path, work: Path, card) -> dict:
+    """``VANILLA_CLI_STEPS`` in-process steps of srn-cars.yml (vanilla NeRF
+    on SRN) on the cli phase's SRN tree, the YAML's own runtime."""
+    cfg = load_config(ROOT / SRN_CARS_YAML, [
+        f"dataset.basedir={root}", f"experiment.logdir={work}",
+        "experiment.id=srn_vanilla", "experiment.print_every=1",
+        "experiment.save_every=1000", "experiment.validate_every=1000"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run_training(cfg, max_steps=VANILLA_CLI_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    recs = [r for r in jsonl(work / "srn_vanilla" / "metrics.jsonl")
+            if r["mode"] == "train"]
+    fine = [r["nerf_loss_fine"] for r in recs]
+    rays = cfg.dataset.train_batch_size * cfg.nerf.ray_sampler.num_random_rays
+    print(f"vanilla srn-cars: run_training({SRN_CARS_YAML}, max_steps="
+          f"{VANILLA_CLI_STEPS}) on the cli tree in {secs:.4g} s: {rays} "
+          f"rays a step, step 2 {recs[1]['time_taken'] * 1e3:.6g} ms; fine "
+          f"loss {fine} on {card}", flush=True)
+    if len(recs) != VANILLA_CLI_STEPS or not finite(fine):
+        raise RuntimeError(f"srn-cars: {recs}")
+    return {"loss_fine": fine, "step_ms": recs[1]["time_taken"] * 1e3,
+            "seconds": secs}
+
+
+def vanilla_phase(card) -> dict:
+    """Phase 10: lego.yml, fern.yml and their entry points."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_vanilla_"))
+    try:
+        t0 = time.perf_counter()
+        lego = lego_phase(work, card)
+        fern = fern_phase(work, card)
+        cli = vanilla_cli(work, card)
+        print(f"vanilla: lego step xla {lego['xla']['step_ms']:.6g} ms, "
+              f"layer_bwd {lego['layer_bwd']['step_ms']:.6g} ms (1 x 16384 "
+              f"rays); full-batch CLI step {cli['step_ms']:.6g} ms, peak "
+              f"{cli['peak_bytes'] / 2**30:.4g} GiB; fern step "
+              f"{fern['step_ms']:.6g} ms; phase {time.perf_counter() - t0:.4g}"
+              f" s on {card}", flush=True)
+        return {"lego": lego, "fern": fern, "cli": cli}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def val_image(cfg) -> str:
     crop = cfg.dataset.image_size - 2 * (cfg.dataset.image_size // 8)
     return f"{crop}x{crop}"
@@ -2110,8 +2692,7 @@ def main():
     bwd = check_bwd(settings, models["fine"], ro_all[:n_step].contiguous(),
                     rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
                     z_t.expand(n_step, -1), card)
-    h = settings.fine_cfg.hidden_size
-    k4 = check_k4(h, h, card)
+    k4 = check_k4(K4_CASES, card)
     # the f32 instantiations of K1-K3, on an f32 model from its own seed
     _, f32_settings = mode_config({"compute_dtype": "float32"})
     model32 = CodeNeRF(f32_settings.fine_cfg, "cuda",
@@ -2240,12 +2821,19 @@ def main():
     phase("tto", t0)
 
     t0 = time.perf_counter()
-    cli = cli_phase(size, dirs, models, train["fused"]["step_ms"], card)
+    cli = cli_phase(size, dirs, models, train["fused"]["step_ms"], card,
+                    then=lambda root, work: srn_cars_steps(root, work, card))
     phase("cli", t0)
 
     t0 = time.perf_counter()
     ev = eval_phase(models, tables, dirs, card)
     phase("eval", t0)
+
+    t0 = time.perf_counter()
+    k4_vanilla = check_k4(K4_VANILLA_CASES, card, seed=SEED + 29)
+    vanilla = vanilla_phase(card)
+    vanilla["srn_cars"] = cli.pop("then")
+    phase("vanilla", t0)
 
     # one image runs each S once per chunk at R = chunk; one train step
     # runs each S once at R = n_step
@@ -2342,6 +2930,14 @@ def main():
     cost = {k: sum(n * r["cost"][k] for r, n in step_rows)
             for k in step_rows[0][0]["cost"]}
     b_ms, b_by = bound_ms(cost)
+    # one vanilla step's K4 launches (each pass: 7 bias + 1 per-ray on
+    # lego, 4 + 1 on fern), from the timed cases at the step's shapes
+    counts = {"lego": {"bias": 7, "per-ray": 1},
+              "fern": {"bias": 4, "per-ray": 1}}
+    vanilla_k4_steps = {
+        scene: [(r, n) for r in k4_vanilla for kind, n in kinds.items()
+                if r["case"].startswith(scene) and r["case"].endswith(kind)]
+        for scene, kinds in counts.items()}
     kernels.append({
         "name": "K4 layer_bwd",
         "route": "cuda",
@@ -2365,11 +2961,33 @@ def main():
                f"{sum(step_cases.values())} launches, "
                f"{', '.join(f'{n} x {c}' for c, n in step_cases.items())} "
                f"at R={n_step}; launches counted over {TRAIN_STEPS} steps",
-        "shapes": k4,
+        "shapes": k4 + k4_vanilla,
         "eval_launches": ev["launches"]["K4"],
         "widths": widths["K4"],
+        "vanilla_launches": {
+            "lego_per_step": vanilla["lego"]["layer_bwd"][
+                "launches_per_step"]["K4"],
+            "fern_per_step": vanilla["fern"]["launches_per_step"]["K4"],
+            "lego_cli_train": vanilla["cli"]["train_launches_K4"]},
+        "vanilla_step_ms": {k: sum(n * r["ms"] for r, n in rows)
+                            for k, rows in vanilla_k4_steps.items()},
+        "vanilla_step_plain_ms": {
+            k: sum(n * r["plain_ms"] for r, n in rows)
+            for k, rows in vanilla_k4_steps.items()},
+        "vanilla_step_library_ms": {
+            k: sum(n * r["library_ms"] for r, n in rows)
+            for k, rows in vanilla_k4_steps.items()},
+        "vanilla_step_bound_ms": {
+            k: bound_ms({c: sum(n * r["cost"][c] for r, n in rows)
+                         for c in rows[0][0]["cost"]})[0]
+            for k, rows in vanilla_k4_steps.items()},
     })
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"vanilla": {
+        k: ({m: ({kk: vv for kk, vv in r.items() if kk != "profile"}
+                 if isinstance(r, dict) else r)
+             for m, r in v.items()} if k == "lego" else v)
+        for k, v in vanilla.items()}}), flush=True)
     print(json.dumps({"eval": {k: v for k, v in ev.items()
                                if k != "summary"}
                       | {"summary": {k: v for k, v in ev["summary"].items()

@@ -4,5 +4,6 @@
 from codenerf_tpu_torch.core.encoding import (  # noqa: F401
     frequency_bands, positional_encoding, encoding_dim)
 from codenerf_tpu_torch.core.geometry import (  # noqa: F401
-    pixel_directions, ray_bundle, pose_spherical, select_ray_indices)
+    ndc_rays, pixel_directions, ray_bundle, pose_spherical,
+    select_ray_indices)
 from codenerf_tpu_torch.core.metrics import mse2psnr, ssim  # noqa: F401

@@ -30,6 +30,28 @@ def ray_bundle(directions: torch.Tensor, pose_c2w: torch.Tensor):
     return ro, rd
 
 
+def ndc_rays(ro: torch.Tensor, rd: torch.Tensor, height: float,
+             width: float, focal: float, near: float = 1.0):
+    """(ro_ndc, rd_ndc), each [..., 3]: the rays moved to the near plane
+    z = -near and mapped to normalized device coordinates, the standard
+    NeRF parametrization of forward-facing (LLFF) scenes (JAX
+    ``ndc_rays``).  The ray parameter t in ro_ndc + t rd_ndc spans [0, 1]
+    from the near plane to infinity, so callers sample t linearly in
+    [0, 1].  Differentiable in ro and rd, so pose gradients flow through
+    it."""
+    t = -(near + ro[..., 2]) / rd[..., 2]
+    ro = ro + t[..., None] * rd
+    ox, oy, oz = ro.unbind(-1)
+    dx, dy, dz = rd.unbind(-1)
+    sx = -2.0 * focal / width
+    sy = -2.0 * focal / height
+    o = torch.stack([sx * ox / oz, sy * oy / oz, 1.0 + 2.0 * near / oz],
+                    dim=-1)
+    d = torch.stack([sx * (dx / dz - ox / oz), sy * (dy / dz - oy / oz),
+                     -2.0 * near / oz], dim=-1)
+    return o, d
+
+
 def pose_spherical(theta, phi, rho, dtype=torch.float32,
                    device=None) -> torch.Tensor:
     """Camera-to-world poses on a sphere looking at the origin, in the

@@ -21,31 +21,49 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from codenerf_tpu_torch.data.blender import BlenderNeRFDataset
+from codenerf_tpu_torch.data.llff import LLFFDataset
 from codenerf_tpu_torch.data.srn import SRNDataset
 
-DATASET_REGISTRY = {"SRNDataset": SRNDataset}
-# dataset types of the JAX package the port has not reached
-_NOT_PORTED = {"BlenderNeRFDataset", "llff", "LLFFDataset"}
+DATASET_REGISTRY = {
+    "SRNDataset": SRNDataset,
+    "BlenderNeRFDataset": BlenderNeRFDataset,
+    "llff": LLFFDataset,
+    "LLFFDataset": LLFFDataset,
+}
 
 
 def build_dataset(cfg_dataset, stage: str):
-    """The dataset ``cfg_dataset.type`` names, for ``stage``."""
+    """The dataset ``cfg_dataset.type`` names, for ``stage``, with the
+    config's ``resolution_level`` (Blender) or ``downsample_factor`` and
+    ``llffhold`` (LLFF)."""
     cls = DATASET_REGISTRY.get(cfg_dataset.type)
     if cls is None:
-        if cfg_dataset.type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"dataset type {cfg_dataset.type}: the Blender and LLFF "
-                "loaders (and NDC rays) are not ported yet (ROADMAP "
-                "Queue 1 item 1)")
         raise ValueError(f"unknown dataset type: {cfg_dataset.type}")
+    if cls is BlenderNeRFDataset:
+        return cls(cfg_dataset.basedir, stage,
+                   resolution_level=cfg_dataset.resolution_level)
+    if cls is LLFFDataset:
+        return cls(cfg_dataset.basedir, stage,
+                   downsample_factor=cfg_dataset.downsample_factor,
+                   llffhold=cfg_dataset.llffhold)
     return cls(cfg_dataset.basedir, stage)
+
+
+def _load(dataset, idx) -> dict:
+    """The samples at ``idx`` stacked: the dataset's ``load_views`` when it
+    has one, else its items one by one."""
+    if hasattr(dataset, "load_views"):
+        return dataset.load_views(idx)
+    samples = [dataset[int(i)] for i in idx]
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 class BatchIterator:
     """Infinite with-replacement batch stream over a dataset.
 
     Args:
-      dataset: a dataset (len + ``load_views``).
+      dataset: a dataset (len and items, or ``load_views``).
       batch_size: images per batch.
       seed: seed of the ``np.random.default_rng`` stream; the harness
         passes the JAX package's seeds.
@@ -61,7 +79,7 @@ class BatchIterator:
 
     def __next__(self) -> dict:
         idx = self.rng.integers(0, len(self.dataset), size=self.batch_size)
-        return self.dataset.load_views(idx)
+        return _load(self.dataset, idx)
 
     def fixed_batch(self, start: int = 0) -> dict:
         """Deterministic sequential batch (the reference's 6th-val-batch
@@ -69,7 +87,7 @@ class BatchIterator:
         n = len(self.dataset)
         idx = [(start * self.batch_size + i) % n
                for i in range(self.batch_size)]
-        return self.dataset.load_views(idx)
+        return _load(self.dataset, idx)
 
 
 class PrefetchIterator:

@@ -18,17 +18,20 @@ import torch
 
 from codenerf_tpu_torch.core.geometry import ray_bundle
 from codenerf_tpu_torch.device import resolve_device
+from codenerf_tpu_torch.models.mlp import CodeNeRFConfig
 from codenerf_tpu_torch.pipeline import RenderSettings, render_rays
 
 
 def serving_settings(settings: RenderSettings) -> RenderSettings:
-    """The grad-free variant of ``settings``: ``split_fc_out`` on both
-    models (JAX eval/render.py:25-33)."""
-    return dataclasses.replace(
-        settings,
-        coarse_cfg=dataclasses.replace(settings.coarse_cfg,
-                                       split_fc_out=True),
-        fine_cfg=dataclasses.replace(settings.fine_cfg, split_fc_out=True))
+    """The grad-free variant of ``settings``: ``split_fc_out`` on CodeNeRF
+    models (JAX eval/render.py:25-33); a FlexibleNeRF has no fc_out
+    split."""
+    def split(cfg):
+        if isinstance(cfg, CodeNeRFConfig):
+            return dataclasses.replace(cfg, split_fc_out=True)
+        return cfg
+    return dataclasses.replace(settings, coarse_cfg=split(settings.coarse_cfg),
+                               fine_cfg=split(settings.fine_cfg))
 
 
 def make_image_renderer(settings: RenderSettings, height: int, width: int,
@@ -37,7 +40,8 @@ def make_image_renderer(settings: RenderSettings, height: int, width: int,
 
     Returned signature: ``render_image(models, directions, pose, z_s, z_t)
     -> rgb [H*W, 3]`` with ``models`` {"coarse", "fine"} on ``device``,
-    ``directions`` [H, W, 3], ``pose`` [4, 4] and codes [1, C].
+    ``directions`` [H, W, 3], ``pose`` [4, 4] and codes [1, C] (None for
+    a FlexibleNeRF).
     """
     dev = resolve_device(device)
     settings = serving_settings(settings)
@@ -51,8 +55,10 @@ def make_image_renderer(settings: RenderSettings, height: int, width: int,
         ro = torch.nn.functional.pad(ro.reshape(num_rays, 3), (0, 0, 0, pad))
         rd = torch.nn.functional.pad(rd.reshape(num_rays, 3), (0, 0, 0, pad),
                                      value=1.0)
-        zs = z_s.to(dev).expand(chunksize, z_s.shape[-1])
-        zt = z_t.to(dev).expand(chunksize, z_t.shape[-1])
+        zs = zt = None
+        if z_s is not None:
+            zs = z_s.to(dev).expand(chunksize, z_s.shape[-1])
+            zt = z_t.to(dev).expand(chunksize, z_t.shape[-1])
         rgb = []
         for i in range(num_chunks):
             sl = slice(i * chunksize, (i + 1) * chunksize)

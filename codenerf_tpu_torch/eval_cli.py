@@ -1,5 +1,6 @@
-"""Evaluate a trained CodeNeRF model with the port by test-time
-optimization (counterpart of ``eval.py``; reference eval.py:245-266):
+"""Evaluate a trained model with the port (counterpart of ``eval.py``;
+reference eval.py:245-266): CodeNeRF by test-time optimization, vanilla
+NeRF by the render at each validation view's ground-truth pose:
 
     python3 -m codenerf_tpu_torch.eval_cli -c configs/srn-cars-code.yml \\
         --load-checkpoint DIR_OR_CKPT [--all-objects] [--batch-objects K] \\
@@ -12,7 +13,8 @@ raises without a card unless ``--device cpu`` is given) in place of
 file or a checkpoint directory (its newest step).  ``--all-objects`` runs
 the category protocol (``harness.validate_category``), ``--batch-objects``
 alone one batched group (``validate_batched``), neither the reference's
-``validate`` rounds.  ``--num-objects`` sizes the code tables from the
+``validate`` rounds (the only mode of a vanilla model: the other two
+refuse it, as JAX's do).  ``--num-objects`` sizes the code tables from the
 checkpoint when the val split's train directory holds none (TTO starts
 from the tables' mean).  ``--multihost`` raises until multi-GPU lands.
 """

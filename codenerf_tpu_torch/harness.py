@@ -5,25 +5,29 @@ train.py:19-58, eval.py:82-205, util.py:44-144).
 ``Harness.from_config`` holds the config, the datasets and their seeded
 batch streams, the camera's direction grid, the render settings and the
 logdir; a train split may be empty (an existing directory with no
-objects), as for evaluation on a val split alone.  ``validate`` is the
-single-object validation the train loop runs: test-time optimization
-(TTO) of codes and pose on a fixed validation view, then a full-image
-render, its PSNR and SSIM.  ``validate_batched`` solves K objects' TTO in
-one step stream, with the per-object multi-start probe, the
-azimuth-flip rescue, the SE(3) refine and multi-view TTO, and renders
-each object from its recovered and its ground-truth camera;
+objects), as for evaluation on a val split alone.  For an LLFF scene
+(unless ``dataset.no_ndc``) the render settings take NDC rays with near 0,
+far 1 and ``lindisp`` spacing, as JAX's do.  ``validate`` is the
+single-object validation the train loop runs: for CodeNeRF, test-time
+optimization (TTO) of codes and pose on a fixed validation view, then a
+full-image render, its PSNR and SSIM; for a vanilla model (no codes),
+the render at the view's ground-truth pose.  ``validate_batched`` solves
+K objects' TTO in one step stream, with the per-object multi-start
+probe, the azimuth-flip rescue, the SE(3) refine and multi-view TTO, and
+renders each object from its recovered and its ground-truth camera;
 ``validate_category`` runs it over every distinct val object in groups
 of K (the eval CLI's ``--all-objects``), with the capacity clamp and the
 out-of-memory halving of ``eval/capacity.py``.
 
 The port runs on one device.  ``runtime.num_devices > 1`` (multi-GPU,
-ROADMAP Queue 1), ``runtime.int8_serving`` (int8 serving, Queue 1) and
-the Blender / LLFF datasets with their NDC rays (``data/loader.py``)
-raise ``NotImplementedError``.
+ROADMAP Queue 1) and ``runtime.int8_serving`` (int8 serving, Queue 1)
+raise ``NotImplementedError``; ``validate_batched`` and
+``validate_category`` refuse a vanilla model, as JAX's assert.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -36,7 +40,7 @@ import torch
 from codenerf_tpu_torch.config import Config, dump_config
 from codenerf_tpu_torch.core.geometry import pixel_directions, pose_spherical
 from codenerf_tpu_torch.core.metrics import mse2psnr, ssim
-from codenerf_tpu_torch.data import BatchIterator, build_dataset
+from codenerf_tpu_torch.data import BatchIterator, LLFFDataset, build_dataset
 from codenerf_tpu_torch.device import resolve_device
 from codenerf_tpu_torch.eval.render import make_image_renderer
 from codenerf_tpu_torch.eval import capacity
@@ -51,6 +55,7 @@ from codenerf_tpu_torch.eval.tto import (BatchedTTOMetrics, TTOState,
                                          se3_refined_poses, select_per_object)
 from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train.optim import build_tto_optimizer
+from codenerf_tpu_torch.train.state import has_codes
 from codenerf_tpu_torch.utils.logging import (MetricLogger, is_main_process,
                                               process_index)
 
@@ -116,7 +121,8 @@ class Harness:
         # refuse a split whose objects carry different intrinsics rather
         # than mis-render all but the probed one
         for ds, name in ((train_ds, "train"), (val_ds, "val")):
-            if len(ds) and not ds.intrinsics_homogeneous():
+            homogeneous = getattr(ds, "intrinsics_homogeneous", None)
+            if homogeneous is not None and len(ds) and not homogeneous():
                 raise ValueError(
                     f"the {name} split has per-object (heterogeneous) "
                     f"intrinsics; the harness builds one pixel-direction "
@@ -128,11 +134,25 @@ class Harness:
         height, width = probe["color"].shape[:2]
         directions = pixel_directions(
             height, width, torch.from_numpy(probe["intrinsic"])).to(dev)
-        return cls(cfg=cfg, settings=RenderSettings.from_config(cfg),
+        settings = RenderSettings.from_config(cfg)
+        # NDC for forward-facing scenes (JAX harness.py:96-108): sampling in
+        # NDC t over [0, 1]; the reference's "lindisp" label is the
+        # linear-in-depth branch, linear in world disparity under NDC
+        if isinstance(train_ds, LLFFDataset) and not cfg.dataset.no_ndc:
+            focal = float(probe["intrinsic"][0, 0])
+            settings = dataclasses.replace(
+                settings, ndc=(float(height), float(width), focal),
+                near=0.0, far=1.0, spacing_mode="lindisp")
+        return cls(cfg=cfg, settings=settings,
                    train_dataset=train_ds, val_dataset=val_ds,
                    train_iter=train_iter, val_iter=val_iter, height=height,
                    width=width, directions=directions, logdir=logdir,
                    device=dev)
+
+    @property
+    def has_codes(self) -> bool:
+        """Whether the models take per-object codes (CodeNeRF)."""
+        return has_codes(self.settings)
 
 
 def _log_every(vi: int, n: int, every: int) -> bool:
@@ -142,13 +162,15 @@ def _log_every(vi: int, n: int, every: int) -> bool:
 
 def validate(harness: Harness, params: dict, logger: MetricLogger,
              iteration: int, val_iterations: Optional[int] = None) -> dict:
-    """Validation pass (reference eval.py:82-205): TTO of codes and pose
-    on the 6th validation batch's first view, then a full-image render
-    and its PSNR / SSIM.
+    """Validation pass (reference eval.py:82-205) on the 6th validation
+    batch's first view: for CodeNeRF, TTO of codes and pose, then a
+    full-image render from the recovered camera; for a vanilla model, the
+    render at the view's ground-truth pose (JAX harness.py:120-145,
+    273-274).  Then the image's PSNR / SSIM.
 
-    ``params``: {"coarse", "fine"} models and {"codes"} tables on the
-    harness's device.  The TTO stages follow the config: multi-start pose
-    probes (``pose_restarts``), the azimuth-flip rescue
+    ``params``: {"coarse", "fine"} models and, for CodeNeRF, {"codes"}
+    tables on the harness's device.  The TTO stages follow the config:
+    multi-start pose probes (``pose_restarts``), the azimuth-flip rescue
     (``pose_flip_steps``) and the SE(3) refine (``se3_refine_steps``).
     Draws come from generators seeded by ``experiment.randomseed``.
     Returns {"loss", "psnr", "ssim"}.
@@ -171,6 +193,9 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
                                  chunksize=cfg.nerf.validation.chunksize,
                                  device=dev)
     models = {"coarse": params["coarse"], "fine": params["fine"]}
+    if not harness.has_codes:
+        rgb = render(models, dirs, pose_gt, None, None)
+        return _finish_validation(harness, target, rgb, logger, iteration)
     codes = params["codes"]
 
     tto, tto_opt = init_tto_state(codes, opt_cfg, device=dev)
@@ -346,6 +371,13 @@ def _psnr_of(rgb, target) -> float:
     return float(mse2psnr(torch.mean((rgb - tflat[..., :3]) ** 2)))
 
 
+def _require_codes(harness: Harness, what: str) -> None:
+    """Refuse a vanilla model where TTO of codes is the point (JAX
+    asserts, harness.py:410 and :712)."""
+    if not harness.has_codes:
+        raise ValueError(f"{what} requires a CodeNeRF model")
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -374,6 +406,7 @@ def validate_batched(harness: Harness, params: dict, logger: MetricLogger,
     rows and objects per minute; with ``return_recovered`` also the
     recovered codes, cameras and spherical parameters (view 0).
     """
+    _require_codes(harness, "batched TTO")
     cfg = harness.cfg
     dev = harness.device
     opt_cfg = cfg.optimizer
@@ -602,6 +635,7 @@ def validate_category(harness: Harness, params: dict, logger: MetricLogger,
     the groups ran at, the TTO seconds of all groups and objects per
     minute.
     """
+    _require_codes(harness, "category evaluation")
     cfg = harness.cfg
     K = max(1, batch_objects)
     V = max(1, tto_views)

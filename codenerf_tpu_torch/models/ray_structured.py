@@ -1,4 +1,4 @@
-"""Ray-structured CodeNeRF forward (counterpart of
+"""Ray-structured CodeNeRF and FlexibleNeRF forwards (counterpart of
 ``codenerf_tpu/models/ray_structured.py``).
 
 A concat matmul factors exactly, ``concat(a, b) @ W == a @ W_top +
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from codenerf_tpu_torch.models.mlp import CodeNeRF
+from codenerf_tpu_torch.models.mlp import CodeNeRF, FlexibleNeRF
 from codenerf_tpu_torch.ops import layer_bwd
 
 
@@ -223,4 +223,46 @@ def apply_codenerf_rays(model: CodeNeRF, xyz_enc, dir_enc, z_s, z_t,
     v = dar(feat, wd_top, dir_part[:, None, :], cd)
     v = dar(v, _w(model.layer_dir2), model.layer_dir2.bias, cd)
     rgb = _mm(v, wr_top, cd) + zt1_part[:, None, :]
+    return torch.cat([rgb, sigma], dim=-1).float()
+
+
+def apply_flexible_rays(model: FlexibleNeRF, xyz_enc, dir_enc=None,
+                        cfg=None):
+    """raw [R, S, 4] in f32 from xyz_enc [R, S, dim_xyz] and dir_enc
+    [R, dim_dir] (None without view directions), under ``cfg`` (default
+    ``model.cfg``), with JAX's branches (ray_structured.py:360-399): the
+    skip layer as two per-sample products ``out @ w_top + xyz_enc @
+    w_bot`` (no concat); layer1 and the skip layer on plain autograd;
+    every other trunk layer and fc_feat through ``_DotAddReluPL`` (K4,
+    bias b) under ``pallas_layer_bwd``, else ``_DotAddRelu``; layer_dir1
+    as ``feat @ w_top`` plus the per-ray rows ``dir_enc @ w_bot + b``
+    through the same Function."""
+    cfg = cfg or model.cfg
+    cd = cfg.cdtype
+    h = cfg.hidden_size
+    if cd is not None:
+        xyz_enc = xyz_enc.to(cd)
+        if dir_enc is not None:
+            dir_enc = dir_enc.to(cd)
+    dar = (_DotAddReluPL if cfg.pallas_layer_bwd else _DotAddRelu).apply
+
+    # layer1 stays on _DotAddRelu under pallas_layer_bwd, as in JAX
+    out = _lin_relu(model.layer1, xyz_enc, cd)
+    for i, layer in enumerate(model.layers_xyz):
+        if i in cfg.skip_connect_ids:
+            w = _w(layer)
+            y = _mm(out, w[:h], cd) + _mm(xyz_enc, w[h:], cd)
+            out = torch.relu(y + layer.bias.to(y.dtype))
+        else:
+            out = dar(out, _w(layer), layer.bias, cd)
+    if not cfg.use_viewdirs:
+        return _lin(model.fc_out, out, cd).float()
+    feat = dar(out, _w(model.fc_feat), model.fc_feat.bias, cd)
+    sigma = _lin(model.fc_alpha, feat, cd)
+    layer_dir1 = model.layers_dir[0]
+    wd = _w(layer_dir1)
+    dp = _mm(dir_enc, wd[h:], cd)
+    dir_part = dp + layer_dir1.bias.to(dp.dtype)
+    v = dar(feat, wd[:h], dir_part[:, None, :], cd)
+    rgb = _lin(model.fc_rgb, v, cd)
     return torch.cat([rgb, sigma], dim=-1).float()

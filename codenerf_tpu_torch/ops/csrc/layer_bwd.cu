@@ -60,7 +60,8 @@
 //      summed in split order; a bias's db partials summed in block order.
 // No atomics: two calls on the same card give the same bits.  f32 keeps
 // the same two steps with CUDA-core products (32-row tiles,
-// layer_bwd_rows_global), as does bf16 above K, N = 256.
+// layer_bwd_rows_global; 16 or 8 rows when N is too wide for 32), as does
+// bf16 above K, N = 256.
 
 #include "xtg.cuh"
 
@@ -93,16 +94,21 @@ struct Args {
   int S, K, N;
 };
 
-constexpr int TMG = 32;  // rows per tile of the global-memory-w layout
+// rows per tile of the global-memory-w layout: 32, or 16 or 8 when N is
+// too wide for a 32-row gp tile (plan.py::row_tile)
+constexpr int TMG = 32;
+__host__ __device__ constexpr bool tmg_ok(int tm) {
+  return tm == TMG || tm == TMG / 2 || tm == TMG / 4;
+}
 
 // shared memory of the row pass: with w in shared memory (bf16), w and gp
 // column blocks of 64, the dx tile (row stride K + 8), the db sums,
-// alignment slack; with w in global memory, an f32 gp tile (row stride
-// N + 4) and the db sums
-__host__ __device__ inline int rows_smem_bytes(int w_in_smem, int K, int N) {
+// alignment slack; with w in global memory, an f32 gp tile of tm rows (row
+// stride N + 4) and the db sums
+__host__ __device__ inline int rows_smem_bytes(int w_in_smem, int K, int N, int tm) {
   const int ncb = (N + 63) / 64;
   return w_in_smem ? ncb * (KR * 128 + 64 * 128) + 64 * (K + 8) * 2 + N * 4 + 1024
-                   : TMG * (N + 4) * 4 + N * 4;
+                   : tm * (N + 4) * 4 + N * 4;
 }
 
 // db: one thread a column walks the tile's rows in order; a per-ray sum is
@@ -260,9 +266,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) layer_bwd_rows_bf16(const Args<bf
 // The row pass with w read from global memory: f32 K4, and bf16 K4 wider
 // than the shared-memory layout holds.  gp is held in f32 (exact), every
 // product sums in f32 fma, dx is rounded to T as it is stored.
-template <typename T>
+template <typename T, int TM>
 __global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_global(const Args<T> p) {
-  constexpr int TM = TMG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = p.K, N = p.N, ldg = N + 4;
   float* const gps = reinterpret_cast<float*>(smem_raw);
@@ -305,12 +310,18 @@ __global__ void __launch_bounds__(NTHREADS) layer_bwd_rows_global(const Args<T> 
       p.db_part[(size_t)blockIdx.x * N + c] = dbacc[c];
 }
 
-typedef void (*KernelBf16)(const Args<bf16>);
-typedef void (*KernelF32)(const Args<float>);
-KernelBf16 kernel_of(const Args<bf16>&, int w_in_smem) {
-  return w_in_smem ? layer_bwd_rows_bf16 : layer_bwd_rows_global<bf16>;
+template <typename T>
+using Kernel = void (*)(const Args<T>);
+template <typename T>
+Kernel<T> global_kernel(int tm) {
+  return tm == TMG       ? layer_bwd_rows_global<T, TMG>
+         : tm == TMG / 2 ? layer_bwd_rows_global<T, TMG / 2>
+                         : layer_bwd_rows_global<T, TMG / 4>;
 }
-KernelF32 kernel_of(const Args<float>&, int) { return layer_bwd_rows_global<float>; }
+Kernel<bf16> kernel_of(const Args<bf16>&, int w_in_smem, int tm) {
+  return w_in_smem ? layer_bwd_rows_bf16 : global_kernel<bf16>(tm);
+}
+Kernel<float> kernel_of(const Args<float>&, int, int tm) { return global_kernel<float>(tm); }
 
 template <typename T>
 int launch(const void* const* ptr, const long long* dims, void* stream) {
@@ -331,10 +342,10 @@ int launch(const void* const* ptr, const long long* dims, void* stream) {
   // the plan (plan.py::layer_bwd_plan) must match this file's layout
   if (p.M <= 0 || p.S <= 0 || G <= 0 || p.K % 16 || p.N % 16 ||
       (w_in_smem && (sizeof(T) != 2 || p.K > KR || p.N > 256)) ||
-      smem != rows_smem_bytes(w_in_smem, p.K, p.N) || tm != (w_in_smem ? 64 : TMG) ||
+      smem != rows_smem_bytes(w_in_smem, p.K, p.N, tm) || !(w_in_smem ? tm == 64 : tmg_ok(tm)) ||
       (p.db_rows != nullptr && p.M % p.S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = kernel_of(p, w_in_smem);
+  const auto kernel = kernel_of(p, w_in_smem, tm);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<G, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);

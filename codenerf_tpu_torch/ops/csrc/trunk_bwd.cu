@@ -103,8 +103,7 @@ struct RowArgs {
 };
 
 template <typename T>
-__host__ __device__ inline int rows_smem_bytes(int H, int SC, int F) {
-  constexpr int TM = tile_rows<T>();
+__host__ __device__ inline int rows_smem_bytes(int H, int SC, int F, int TM) {
   const int ld = ld_of(H, SC), ldk = kp_of(F) + PAD;
   return (2 * TM * ld + 2 * TM * ldk + TM * LDX) * (int)sizeof(T) + TM * 3 * 4 + TM * 4 * 4 +
          TM * 4;
@@ -179,9 +178,8 @@ __device__ __forceinline__ void ray_sums_g(const float* g, int j0, int n, long l
   }
 }
 
-template <typename T, bool RECOMPUTE>
+template <typename T, bool RECOMPUTE, int TM>
 __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowArgs<T> p) {
-  constexpr int TM = tile_rows<T>();
   extern __shared__ __align__(128) unsigned char smem[];
   const TrunkW<T>& w = p.w;
   const int H = w.H, SC = w.SC, S = w.S, ld = w.ld, ldk = w.ldk, KP = w.KP, F = w.F;
@@ -233,13 +231,13 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowAr
       for (int r = tid; r < TM; r += NTHREADS)
         ray[r] = (int)((row0 + (r < nvalid ? r : nvalid - 1)) / S);
       __syncthreads();
-      fwd_front<T>(w, pts, ray, X, Y, encS, encC, encX, &p.act, row0, nvalid);
-      fwd_back<T>(w, ray, X, Y, &p.act, row0, nvalid);
+      fwd_front<T, TM>(w, pts, ray, X, Y, encS, encC, encX, &p.act, row0, nvalid);
+      fwd_back<T, TM>(w, ray, X, Y, &p.act, row0, nvalid);
     } else {
-      load_rows(p.act.v2, H, X, ld, row0, nvalid);
-      load_rows(p.act.v1, H, Y, ld, row0, nvalid);
+      load_rows<T, TM>(p.act.v2, H, X, ld, row0, nvalid);
+      load_rows<T, TM>(p.act.v1, H, Y, ld, row0, nvalid);
       __syncthreads();
-      encode_tile(w, pts, encS, encC, encX);
+      encode_tile<T, TM>(w, pts, encS, encC, encX);
     }
     // the encode rows for dw1s, dw1c, dw1x and db1: [sin | cos | x 1 0 ...],
     // 16 bytes a store
@@ -296,7 +294,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowAr
     store_rows(X, ld, p.cot.v2, H, row0, nvalid);
 
     // g_v1 = live(v1) * cd(g_v2 @ wd2^T), in place of v1
-    tile_gemm_t<WN, 4>(X, ld, w.wd2, H, H, [=](int r, int c, float v) {
+    tile_gemm_t<TM, WN, 4>(X, ld, w.wd2, H, H, [=](int r, int c, float v) {
       T* d = Y + r * ld + c;
       *d = live(*d) ? cvt<T>(v) : cvt<T>(0.0f);
     });
@@ -304,12 +302,12 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowAr
     ray_sums(Y, ld, H, row0, nvalid, S, p.gdirp);
     store_rows(Y, ld, p.cot.v1, H, row0, nvalid);
     // g_feat = cd(g_v1 @ wd^T), into X (g_v2 is stored)
-    tile_gemm_t<WN, 4>(Y, ld, w.wd, H, SC,
+    tile_gemm_t<TM, WN, 4>(Y, ld, w.wd, H, SC,
                     [=](int r, int c, float v) { X[r * ld + c] = cvt<T>(v); });
     __syncthreads();
     ray_sums(X, ld, SC, row0, nvalid, S, p.gfeatp);
     store_rows(X, ld, p.cot.feat, SC, row0, nvalid);
-    load_rows(p.act.h2, H, Y, ld, row0, nvalid);  // g_v1 is stored
+    load_rows<T, TM>(p.act.h2, H, Y, ld, row0, nvalid);  // g_v1 is stored
     __syncthreads();
 
     // dwos = h2^T g_sig
@@ -320,7 +318,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowAr
     }
     __syncthreads();
     // g_h2 = live(h2) * cd(cd(g_feat @ wof^T) + cd(cd(g_sig) * wos)), in place of h2
-    tile_gemm_t<WN, 4>(X, ld, w.wof, SC, H, [=](int r, int c, float v) {
+    tile_gemm_t<TM, WN, 4>(X, ld, w.wof, SC, H, [=](int r, int c, float v) {
       T* d = Y + r * ld + c;
       const float t = rnd<T>(rnd<T>(v) + rnd<T>(rnd<T>(g[r * 4 + 3]) * f32(wos[c])));
       *d = live(*d) ? cvt<T>(t) : cvt<T>(0.0f);
@@ -328,11 +326,11 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowAr
     __syncthreads();
     ray_sums(Y, ld, H, row0, nvalid, S, p.gzs1p);
     store_rows(Y, ld, p.cot.h2, H, row0, nvalid);
-    load_rows(p.act.h1, H, X, ld, row0, nvalid);  // g_feat is stored
+    load_rows<T, TM>(p.act.h1, H, X, ld, row0, nvalid);  // g_feat is stored
     __syncthreads();
 
     // g_h1 = live(h1) * cd(g_h2 @ w2^T), in place of h1
-    tile_gemm_t<WN, 4>(Y, ld, w.w2, H, H, [=](int r, int c, float v) {
+    tile_gemm_t<TM, WN, 4>(Y, ld, w.w2, H, H, [=](int r, int c, float v) {
       T* d = X + r * ld + c;
       *d = live(*d) ? cvt<T>(v) : cvt<T>(0.0f);
     });
@@ -343,7 +341,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) trunk_bwd_rows_kernel(const RowAr
     // blocks: one product against the stacked [w1s; w1c; w1x], 16 columns
     // by 16 rows a warp task
     const int n1 = 2 * KP + (has_x ? KX : 0);
-    tile_gemm_t<16, 1>(X, ld, w.w1b, H, n1, [=](int r, int c, float v) {
+    tile_gemm_t<TM, 16, 1>(X, ld, w.w1b, H, n1, [=](int r, int c, float v) {
       T* d = c < KP       ? encS + r * ldk + c
              : c < 2 * KP ? encC + r * ldk + c - KP
                           : encX + r * LDX + c - 2 * KP;
@@ -419,6 +417,16 @@ Acts<T> acts_of(void* const* a) {
 // buffers its forward fills; v2 unused); out: g_pts
 // gzs1p gfeatp gsigp gdirp gzt1p enc g_h1 g_h2 g_feat g_v1 g_v2 small;
 // dims: R S H SC F smem tile_rows G EW
+template <typename T, bool RECOMPUTE, int TM>
+int launch_tile(const RowArgs<T>& p, int G, int smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_rows_kernel<T, RECOMPUTE, TM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  trunk_bwd_rows_kernel<T, RECOMPUTE, TM>
+      <<<G, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool RECOMPUTE>
 int launch_rows(const void* const* in, void* const* out, const int* dims, void* stream) {
   RowArgs<T> p;
@@ -438,16 +446,15 @@ int launch_rows(const void* const* in, void* const* out, const int* dims, void* 
   p.R = dims[0];
   const int G = dims[7];
   p.EW = dims[8];
-  const int smem = rows_smem_bytes<T>(p.w.H, p.w.SC, p.w.F);
+  const int tm = dims[6];
+  const int smem = rows_smem_bytes<T>(p.w.H, p.w.SC, p.w.F, tm);
   const int ew = 2 * p.w.KP + KX;
-  if (dims[5] != smem || dims[6] != tile_rows<T>() || p.EW != ew || p.R <= 0 || G <= 0 ||
-      G > p.R)
+  if (!tile_ok<T>(tm) || dims[5] != smem || p.EW != ew || p.R <= 0 || G <= 0 || G > p.R)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(trunk_bwd_rows_kernel<T, RECOMPUTE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  trunk_bwd_rows_kernel<T, RECOMPUTE><<<G, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int TM = tile_rows<T>();
+  if (tm == TM) return launch_tile<T, RECOMPUTE, TM>(p, G, smem, stream);
+  if (tm == TM / 2) return launch_tile<T, RECOMPUTE, TM / 2>(p, G, smem, stream);
+  return launch_tile<T, RECOMPUTE, TM / 4>(p, G, smem, stream);
 }
 
 }  // namespace

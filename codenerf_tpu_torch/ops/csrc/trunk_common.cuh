@@ -15,9 +15,12 @@
 // with f32 accumulators) or float (K1 and K2 / K3 in compute_dtype
 // float32; products on the CUDA cores in f32 fma, no TF32, so every
 // rounding to T is exact and nothing is rounded between products, as in
-// JAX with cd = f32).  A tile is 64 rows in bf16 and 32 in f32: the same
-// bytes of shared memory.  The build hashes this header into both
-// libraries' names.
+// JAX with cd = f32).  A tile is 64 rows in bf16 and 32 in f32 (the same
+// bytes of shared memory), or a half or a quarter of that for layers too
+// wide for a full tile's buffers: the tile's rows TM are a template
+// argument, picked by plan.py::row_tile and checked by the entry points.
+// No sum runs across rows, so every TM gives the same bits.  The build
+// hashes this header into both libraries' names.
 
 #pragma once
 
@@ -37,10 +40,16 @@ constexpr int KX = 16;             // K of the x block: 3 coordinates, zero-padd
 constexpr int PAD = 8;             // shared-memory row padding, elements
 constexpr int LDX = KX + PAD;
 
-// sample rows per tile
+// sample rows of a full tile; TM may also be a half or a quarter of it
 template <typename T>
 __host__ __device__ constexpr int tile_rows() {
   return sizeof(T) == 2 ? 64 : 32;
+}
+
+// whether TM is one of the tile heights the kernels are built for
+template <typename T>
+__host__ __device__ constexpr bool tile_ok(int tm) {
+  return tm == tile_rows<T>() || tm == tile_rows<T>() / 2 || tm == tile_rows<T>() / 4;
 }
 
 __host__ __device__ inline int kp_of(int F) { return (3 * F + 15) / 16 * 16; }
@@ -119,14 +128,15 @@ __device__ __forceinline__ void frag_epi(const Frag& f, int r0, int c0, Epi epi)
 // adjacent elements a load).  The forward passes its weights transposed
 // ([out, in]); the backward's cotangent products g @ w^T pass them as they
 // are.  K % 16 == 0, N % WNB == 0.  A warp task is WNB columns of RF 16-row
-// groups; the tasks (column-major over the row groups) go round the warps,
-// so a narrow product (small N) still keeps every warp busy with RF = 1.
+// groups (RF_MAX, or all the tile's groups when it has fewer); the tasks
+// (column-major over the row groups) go round the warps, so a narrow
+// product (small N) still keeps every warp busy with RF = 1.
 // epi(r, c, v) receives each f32 sum once, on a lane of the owning warp.
 // The next k-step's W fragments are loaded while this step's products run.
-template <int WNB, int RF, class Epi>
+template <int TM, int WNB, int RF_MAX, class Epi>
 __device__ __forceinline__ void tile_gemm_t(const bf16* A, int lda, const bf16* W, int K, int N,
                                             Epi epi) {
-  constexpr int TM = tile_rows<bf16>(), RG = TM / 16 / RF;
+  constexpr int RF = RF_MAX < TM / 16 ? RF_MAX : TM / 16, RG = TM / 16 / RF;
   const int warp = threadIdx.x >> 5, ncol = N / WNB;
   for (int task = warp; task < ncol * RG; task += NWARPS) {
     const int n0 = (task % ncol) * WNB, m0 = (task / ncol) * RF * 16;
@@ -170,10 +180,9 @@ __device__ __forceinline__ void tile_gemm_t(const bf16* A, int lda, const bf16* 
 
 // The same product in f32 on the CUDA cores: thread c owns output column c
 // of all TM rows and sums k in order.
-template <int WNB, int RF, class Epi>
+template <int TM, int WNB, int RF, class Epi>
 __device__ __forceinline__ void tile_gemm_t(const float* A, int lda, const float* W, int K, int N,
                                             Epi epi) {
-  constexpr int TM = tile_rows<float>();
   for (int c = threadIdx.x; c < N; c += NTHREADS) {
     float acc[TM];
 #pragma unroll
@@ -192,10 +201,9 @@ __device__ __forceinline__ void tile_gemm_t(const float* A, int lda, const float
 // Positional encode of the tile's points (pts: [TM, 3] f32 in shared
 // memory), column j = 3k + c <-> band k, coordinate c.  The argument is one
 // f32 multiply and sincosf is the full-range version.
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void encode_tile(const TrunkW<T>& w, const float* pts, T* encS, T* encC,
                                             T* encX) {
-  constexpr int TM = tile_rows<T>();
   const int tid = threadIdx.x, KP = w.KP, ldk = w.ldk, F3 = 3 * w.F;
   for (int i = tid; i < TM * KP; i += NTHREADS) {
     const int r = i / KP, j = i - r * KP;
@@ -213,7 +221,7 @@ __device__ __forceinline__ void encode_tile(const TrunkW<T>& w, const float* pts
 
 // h1 = relu(layer_xyz1 as three products summed in T in the TPU kernel's
 // order, + b1)
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_h1(const TrunkW<T>& w, const T* encS, const T* encC,
                                        const T* encX, T* h1) {
   const int ld = w.ld, ldk = w.ldk, KP = w.KP, H = w.H;
@@ -223,26 +231,26 @@ __device__ __forceinline__ void fwd_h1(const TrunkW<T>& w, const T* encS, const 
     const float t = rnd<T>(f32(*d) + rnd<T>(v));
     *d = cvt<T>(fmaxf(rnd<T>(t + f32(b1[c])), 0.0f));
   };
-  tile_gemm_t<WN, 4>(encS, ldk, w.w1sT, KP, H,
+  tile_gemm_t<TM, WN, 4>(encS, ldk, w.w1sT, KP, H,
             [=](int r, int c, float v) { h1[r * ld + c] = cvt<T>(v); });
   if (w.w1xT != nullptr) {
-    tile_gemm_t<WN, 4>(encC, ldk, w.w1cT, KP, H, [=](int r, int c, float v) {
+    tile_gemm_t<TM, WN, 4>(encC, ldk, w.w1cT, KP, H, [=](int r, int c, float v) {
       T* d = h1 + r * ld + c;
       *d = cvt<T>(f32(*d) + rnd<T>(v));
     });
-    tile_gemm_t<WN, 4>(encX, LDX, w.w1xT, KX, H, l1_last);
+    tile_gemm_t<TM, WN, 4>(encX, LDX, w.w1xT, KX, H, l1_last);
   } else {
-    tile_gemm_t<WN, 4>(encC, ldk, w.w1cT, KP, H, l1_last);
+    tile_gemm_t<TM, WN, 4>(encC, ldk, w.w1cT, KP, H, l1_last);
   }
   __syncthreads();
 }
 
 // h2 = relu(h1 @ layer_xyz2 top half + per-ray zs1p row)
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_h2(const TrunkW<T>& w, const T* h1, T* h2, const int* ray) {
   const int ld = w.ld, H = w.H;
   const T* const zs1p = w.zs1p;
-  tile_gemm_t<WN, 4>(h1, ld, w.w2T, H, H, [=](int r, int c, float v) {
+  tile_gemm_t<TM, WN, 4>(h1, ld, w.w2T, H, H, [=](int r, int c, float v) {
     const float t = rnd<T>(rnd<T>(v) + f32(zs1p[(size_t)ray[r] * H + c]));
     h2[r * ld + c] = cvt<T>(fmaxf(t, 0.0f));
   });
@@ -250,22 +258,22 @@ __device__ __forceinline__ void fwd_h2(const TrunkW<T>& w, const T* h1, T* h2, c
 }
 
 // feat = h2 @ fc_out's feature columns + per-ray featp row (no relu)
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_feat(const TrunkW<T>& w, const T* h2, T* feat, const int* ray) {
   const int ld = w.ld, SC = w.SC;
   const T* const featp = w.featp;
-  tile_gemm_t<WN, 4>(h2, ld, w.wofT, w.H, SC, [=](int r, int c, float v) {
+  tile_gemm_t<TM, WN, 4>(h2, ld, w.wofT, w.H, SC, [=](int r, int c, float v) {
     feat[r * ld + c] = cvt<T>(rnd<T>(v) + f32(featp[(size_t)ray[r] * SC + c]));
   });
   __syncthreads();
 }
 
 // v1 = relu(feat @ layer_dir1 top half + per-ray dirp row)
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_v1(const TrunkW<T>& w, const T* feat, T* v1, const int* ray) {
   const int ld = w.ld, H = w.H;
   const T* const dirp = w.dirp;
-  tile_gemm_t<WN, 4>(feat, ld, w.wdT, w.SC, H, [=](int r, int c, float v) {
+  tile_gemm_t<TM, WN, 4>(feat, ld, w.wdT, w.SC, H, [=](int r, int c, float v) {
     const float t = rnd<T>(rnd<T>(v) + f32(dirp[(size_t)ray[r] * H + c]));
     v1[r * ld + c] = cvt<T>(fmaxf(t, 0.0f));
   });
@@ -273,11 +281,11 @@ __device__ __forceinline__ void fwd_v1(const TrunkW<T>& w, const T* feat, T* v1,
 }
 
 // v2 = relu(v1 @ layer_dir2 + bd2)
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_v2(const TrunkW<T>& w, const T* v1, T* v2) {
   const int ld = w.ld, H = w.H;
   const T* const bd2 = w.bd2;
-  tile_gemm_t<WN, 4>(v1, ld, w.wd2T, H, H, [=](int r, int c, float v) {
+  tile_gemm_t<TM, WN, 4>(v1, ld, w.wd2T, H, H, [=](int r, int c, float v) {
     const float t = rnd<T>(rnd<T>(v) + f32(bd2[c]));
     v2[r * ld + c] = cvt<T>(fmaxf(t, 0.0f));
   });
@@ -299,10 +307,9 @@ __device__ __forceinline__ void store_rows(const T* src, int ld, T* dst, int N, 
 
 // the tile buffer dst (row stride ld) from rows row0.. of src [*, N]; rows
 // past nvalid are zero
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void load_rows(const T* src, int N, T* dst, int ld, long long row0,
                                           int nvalid) {
-  constexpr int TM = tile_rows<T>();
   const int nv = N * (int)sizeof(T) / 16;
   for (int i = threadIdx.x; i < TM * nv; i += NTHREADS) {
     const int r = i / nv, v = i - r * nv;
@@ -325,32 +332,31 @@ struct Acts {
 // The first half of a tile's forward: the encode of pts [TM, 3], then h1 in
 // A and h2 in B (both also to `acts` for the tile's nvalid rows if acts is
 // not null).
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_front(const TrunkW<T>& w, const float* pts, const int* ray,
                                           T* A, T* B, T* encS, T* encC, T* encX,
                                           const Acts<T>* acts, long long row0, int nvalid) {
-  encode_tile(w, pts, encS, encC, encX);
-  fwd_h1(w, encS, encC, encX, A);
+  encode_tile<T, TM>(w, pts, encS, encC, encX);
+  fwd_h1<T, TM>(w, encS, encC, encX, A);
   if (acts) store_rows(A, w.ld, acts->h1, w.H, row0, nvalid);
-  fwd_h2(w, A, B, ray);
+  fwd_h2<T, TM>(w, A, B, ray);
   if (acts) store_rows(B, w.ld, acts->h2, w.H, row0, nvalid);
 }
 
 // The second half: feat in A, v1 in B, v2 in A (feat and v1 also to acts).
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_back(const TrunkW<T>& w, const int* ray, T* A, T* B,
                                          const Acts<T>* acts, long long row0, int nvalid) {
-  fwd_feat(w, B, A, ray);
+  fwd_feat<T, TM>(w, B, A, ray);
   if (acts) store_rows(A, w.ld, acts->feat, w.SC, row0, nvalid);
-  fwd_v1(w, A, B, ray);
+  fwd_v1<T, TM>(w, A, B, ray);
   if (acts) store_rows(B, w.ld, acts->v1, w.H, row0, nvalid);
-  fwd_v2(w, B, A);
+  fwd_v2<T, TM>(w, B, A);
 }
 
-// Shared memory of fwd_tile.
+// Shared memory of fwd_tile at TM rows a tile.
 template <typename T>
-__host__ __device__ inline int fwd_smem_bytes(int H, int SC, int F) {
-  constexpr int TM = tile_rows<T>();
+__host__ __device__ inline int fwd_smem_bytes(int H, int SC, int F, int TM) {
   const int ld = ld_of(H, SC), ldk = kp_of(F) + PAD;
   return (2 * TM * ld + 2 * TM * ldk + TM * LDX) * (int)sizeof(T) + TM * 3 * 4 + TM * 4 +
          TM * 4;
@@ -358,10 +364,9 @@ __host__ __device__ inline int fwd_smem_bytes(int H, int SC, int F) {
 
 // f32 K1's tile of rows [row0, row0 + TM): raw = [rgb | sigma] f32 to
 // out [nrows, 4].
-template <typename T>
+template <typename T, int TM>
 __device__ __forceinline__ void fwd_tile(const TrunkW<T>& w, const float* gpts, long long nrows,
                                          long long row0, float* out, unsigned char* smem) {
-  constexpr int TM = tile_rows<T>();
   const int H = w.H, ld = w.ld, ldk = w.ldk;
   T* const bufA = reinterpret_cast<T*>(smem);
   T* const bufB = bufA + TM * ld;
@@ -383,14 +388,14 @@ __device__ __forceinline__ void fwd_tile(const TrunkW<T>& w, const float* gpts, 
   }
   __syncthreads();
 
-  fwd_front<T>(w, pts, ray, bufA, bufB, encS, encC, encX, nullptr, row0, nvalid);
+  fwd_front<T, TM>(w, pts, ray, bufA, bufB, encS, encC, encX, nullptr, row0, nvalid);
   // fc_out's sigma column (threads 0..TM-1) from h2 in B, before v1 takes B
   if (tid < TM) {
     float acc = 0.0f;
     for (int k = 0; k < H; ++k) acc = fmaf(f32(bufB[tid * ld + k]), f32(w.wos[k]), acc);
     sig[tid] = rnd<T>(acc) + f32(w.sigp[ray[tid]]);
   }
-  fwd_back<T>(w, ray, bufA, bufB, nullptr, row0, nvalid);
+  fwd_back<T, TM>(w, ray, bufA, bufB, nullptr, row0, nvalid);
 
   // fc_rgb top half + per-ray zt1p row, and the sigma column
   for (int i = tid; i < TM * 3; i += NTHREADS) {

@@ -78,7 +78,8 @@
 // so a bf16 rounding, and with it a relu mask, can rarely differ between
 // this forward and K2's.
 //
-// f32 (trunk_fwd_kernel<float>): one block of 8 warps per 32 rows; the
+// f32 (trunk_fwd_kernel<float, TM>): one block of 8 warps per 32 rows (16
+// or 8 for layers too wide for that tile's buffers, plan.py::row_tile); the
 // tile's activations stay in shared memory, in two buffers that the layers
 // ping-pong between, and the products run on the CUDA cores (f32 fma, no
 // TF32), from trunk_common.cuh, the chain K2 recomputes
@@ -86,8 +87,9 @@
 //
 // bf16 wider than the wgmma kernel takes (a padded width above 256, or
 // more than 10 xyz bands) runs the same row-tile chain in bf16
-// (trunk_fwd_kernel<bf16>: 64-row tiles, wmma products with the weights
-// read from L2), the chain K2's recompute runs, with K1's cast points.
+// (trunk_fwd_kernel<bf16, TM>: 64-row tiles, or 32 / 16 when wider still;
+// wmma products with the weights read from L2), the chain K2's recompute
+// runs, with K1's cast points.
 // plan.py::k1_plan picks it by shape before any launch.
 
 #include "hopper.cuh"
@@ -616,10 +618,21 @@ struct Args {
   long long nrows;     // R*S
 };
 
-template <typename T>
+template <typename T, int TM>
 __global__ void __launch_bounds__(NTHREADS, 2) trunk_fwd_kernel(const Args<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_tile<T>(p.w, p.pts, p.nrows, (long long)blockIdx.x * tile_rows<T>(), p.out, smem);
+  fwd_tile<T, TM>(p.w, p.pts, p.nrows, (long long)blockIdx.x * TM, p.out, smem);
+}
+
+template <typename T, int TM>
+int launch_tile(const Args<T>& p, int smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel<T, TM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (p.nrows == 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((p.nrows + TM - 1) / TM);
+  trunk_fwd_kernel<T, TM><<<blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -661,17 +674,14 @@ int launch_rows(const void* const* in, void* out, const int* dims, void* stream)
   w.KP = kp_of(F);
   w.ld = ld_of(H, SC);
   w.ldk = w.KP + PAD;
-  const int smem = fwd_smem_bytes<T>(H, SC, F);
+  const int tm = dims[6];
+  const int smem = fwd_smem_bytes<T>(H, SC, F, tm);
   // the plan (plan.py::trunk_fwd_plan) must match this file's layout
-  if (dims[5] != smem || dims[6] != tile_rows<T>())
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(trunk_fwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (p.nrows == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((p.nrows + tile_rows<T>() - 1) / tile_rows<T>());
-  trunk_fwd_kernel<T><<<blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (!tile_ok<T>(tm) || dims[5] != smem) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int TM = tile_rows<T>();
+  if (tm == TM) return launch_tile<T, TM>(p, smem, stream);
+  if (tm == TM / 2) return launch_tile<T, TM / 2>(p, smem, stream);
+  return launch_tile<T, TM / 4>(p, smem, stream);
 }
 
 }  // namespace
@@ -733,8 +743,9 @@ int trunk_fwd_bf16(const void* const* in, void* out, const long long* dims, void
 // in:  pts zs1p featp sigp dirp zt1p b1 w1x w1s w1c bands w2 wof wos wd wd2
 //      bd2 wr, then w1x w1s w1c w2 wof wd wd2 transposed (w1x null without
 //      the input term; all in the compute type but pts and bands, f32)
-// dims: R S H SC F smem tile_rows.  Requires H % 32 == 0 and SC % 32 == 0
-// (the wrapper pads).
+// dims: R S H SC F smem tile_rows (a full tile, a half or a quarter, as
+// plan.py::row_tile picks).  Requires H % 32 == 0 and SC % 32 == 0 (the
+// wrapper pads).
 int trunk_fwd_rows(const void* const* in, void* out, const int* dims, int f32, void* stream) {
   return f32 ? launch_rows<float>(in, out, dims, stream)
              : launch_rows<bf16>(in, out, dims, stream);

@@ -25,6 +25,7 @@ TRUNK_MULTIPLE = 32         # K1-K3 take hidden and code widths that are
                             # multiples of this; the wrappers zero-pad
 K4_MULTIPLE = 16            # K4 takes K and N that are multiples of this
 K4_GLOBAL_ROWS = 32         # rows per tile of K4's global-memory-w layout
+                            # (16 or 8 when N is wider: k4_global_rows)
 K4_MAX_WIDTH = 256          # bf16 K4 keeps w [K, N] in shared memory up to
                             # this width; wider, it takes the layout of f32
                             # K4 (w read from global memory), chosen by
@@ -50,8 +51,20 @@ def padded(n: int, multiple: int) -> int:
 
 
 def tile_rows(elem: int) -> int:
-    """Sample rows per tile: 64 in bf16, 32 in f32 (the same bytes)."""
+    """Sample rows of a full tile: 64 in bf16, 32 in f32 (the same
+    bytes)."""
     return 64 if elem == 2 else 32
+
+
+def row_tile(full: int, smem_of) -> int:
+    """The rows of a row pass's tile: ``full``, or a half or a quarter of
+    it when ``smem_of(rows)`` bytes of shared memory would not fit a block
+    (the kernels are built for these three heights).  The quarter when
+    none fits, so that ``_check_smem`` names the widths."""
+    for tm in (full, full // 2):
+        if smem_of(tm) <= SMEM_LIMIT:
+            return tm
+    return full // 4
 
 
 def kp_of(F: int) -> int:
@@ -83,32 +96,32 @@ def even_ranges(units: int, parts: int) -> list:
             for b in range(parts)]
 
 
-def _trunk_tiles(H: int, SC: int, F: int, elem: int) -> int:
+def _trunk_tiles(H: int, SC: int, F: int, elem: int, tm: int) -> int:
     # two activation buffers, the sin and cos blocks and the x block
-    tm, ld, ldk = tile_rows(elem), ld_of(H, SC), kp_of(F) + PAD
+    ld, ldk = ld_of(H, SC), kp_of(F) + PAD
     return (2 * tm * ld + 2 * tm * ldk + tm * (KX + PAD)) * elem
 
 
-def trunk_fwd_smem(H: int, SC: int, F: int, elem: int) -> int:
+def trunk_fwd_smem(H: int, SC: int, F: int, elem: int, tm: int) -> int:
     # + pts [TM, 3], sigma [TM] and the ray of each row [TM]
-    tm = tile_rows(elem)
-    return _trunk_tiles(H, SC, F, elem) + tm * 3 * 4 + tm * 4 + tm * 4
+    return _trunk_tiles(H, SC, F, elem, tm) + tm * 3 * 4 + tm * 4 + tm * 4
 
 
-def trunk_rows_smem(H: int, SC: int, F: int, elem: int) -> int:
+def trunk_rows_smem(H: int, SC: int, F: int, elem: int, tm: int) -> int:
     # + pts [TM, 3], g [TM, 4] and the ray of each row [TM]
-    tm = tile_rows(elem)
-    return _trunk_tiles(H, SC, F, elem) + tm * 3 * 4 + tm * 4 * 4 + tm * 4
+    return _trunk_tiles(H, SC, F, elem, tm) + tm * 3 * 4 + tm * 4 * 4 + tm * 4
 
 
 def trunk_fwd_plan(R: int, S: int, H: int, SC: int, F: int, elem: int) -> dict:
     """f32 K1 and K2's recompute chain (both elements): one block per tile
-    of consecutive sample rows."""
+    of consecutive sample rows, a full tile or, for widths whose buffers
+    it cannot hold, a half or a quarter of one (``row_tile``)."""
     if H % 32 or SC % 32:
         raise ValueError(f"the trunk kernels need hidden and code widths "
                          f"that are multiples of 32, got {H} and {SC}")
-    tm = tile_rows(elem)
-    smem = trunk_fwd_smem(H, SC, F, elem)
+    tm = row_tile(tile_rows(elem),
+                  lambda t: trunk_fwd_smem(H, SC, F, elem, t))
+    smem = trunk_fwd_smem(H, SC, F, elem, tm)
     _check_smem(f"K1 at h={H}, s={SC}, F={F}", smem)
     return {"tile_rows": tm, "smem": smem, "blocks": -(-R * S // tm),
             "kp": kp_of(F)}
@@ -255,7 +268,9 @@ def trunk_bwd_plan(R: int, S: int, H: int, SC: int, F: int, has_x: bool,
         raise ValueError(f"the trunk backward needs at least one sample, got "
                          f"R={R}, S={S}")
     trunk_fwd_plan(R, S, H, SC, F, elem)      # the widths K1's chain takes
-    smem = trunk_rows_smem(H, SC, F, elem)
+    tm = row_tile(tile_rows(elem),
+                  lambda t: trunk_rows_smem(H, SC, F, elem, t))
+    smem = trunk_rows_smem(H, SC, F, elem, tm)
     _check_smem(f"the trunk backward at h={H}, s={SC}, F={F}", smem)
     grid = min(R, n_sm * blocks_per_sm(smem, 2))
     kp = kp_of(F)
@@ -267,20 +282,29 @@ def trunk_bwd_plan(R: int, S: int, H: int, SC: int, F: int, has_x: bool,
     for name, p in zip(names, gemm["products"]):
         p["name"] = name
     return {"recompute": not stored,
-            "rows": {"tile_rows": tile_rows(elem), "smem": smem, "grid": grid,
+            "rows": {"tile_rows": tm, "smem": smem, "grid": grid,
                      "ray_ranges": even_ranges(R, grid)},
             "enc_width": enc_width, "kp": kp, "small_width": 5 * H,
             "gemm": gemm}
 
 
-def layer_bwd_smem(K: int, N: int, elem: int, w_in_smem: bool) -> int:
+def layer_bwd_smem(K: int, N: int, elem: int, w_in_smem: bool,
+                   tm: int) -> int:
     if w_in_smem:
         # w and gp in 64-column blocks, the dx tile, db, alignment slack
         ncb = -(-N // 64)
         return (ncb * (K4_MAX_WIDTH * 128 + 64 * 128) + 64 * (K + 8) * 2
                 + N * 4 + 1024)
-    # the f32 gp tile (row stride N + 4) and db, in either element type
-    return K4_GLOBAL_ROWS * (N + 4) * 4 + N * 4
+    # the f32 gp tile of tm rows (row stride N + 4) and db, in either
+    # element type
+    return tm * (N + 4) * 4 + N * 4
+
+
+def k4_global_rows(N: int) -> int:
+    """Rows per tile of K4's global-memory-w layout: 32, or 16 or 8 for
+    an N whose 32-row gp tile shared memory cannot hold."""
+    return row_tile(K4_GLOBAL_ROWS,
+                    lambda t: layer_bwd_smem(0, N, 4, False, t))
 
 
 def layer_bwd_plan(M: int, S: int, K: int, N: int, per_ray: bool, elem: int,
@@ -300,8 +324,8 @@ def layer_bwd_plan(M: int, S: int, K: int, N: int, per_ray: bool, elem: int,
                          f"at most {K4_MAX_WIDTH}, got w ({K}, {N})")
     if M < 1 or (per_ray and M % S):
         raise ValueError(f"K4 needs whole rays, got M={M}, S={S}")
-    tm = tile_rows(2) if w_in_smem else K4_GLOBAL_ROWS
-    smem = layer_bwd_smem(K, N, elem, w_in_smem)
+    tm = tile_rows(2) if w_in_smem else k4_global_rows(N)
+    smem = layer_bwd_smem(K, N, elem, w_in_smem, tm)
     _check_smem(f"K4 at w ({K}, {N})", smem)
     units = M // S if per_ray else -(-M // tm)
     grid = min(units, n_sm * blocks_per_sm(smem, 1 if w_in_smem else 2))
@@ -321,7 +345,10 @@ def k4_layout(K: int, N: int, elem: int) -> tuple:
     row pass's tile even then."""
     k, n = padded(K, K4_MULTIPLE), padded(N, K4_MULTIPLE)
     w_in_smem = elem == 2 and max(k, n) <= K4_MAX_WIDTH
-    _check_smem(f"K4 at w ({K}, {N})", layer_bwd_smem(k, n, elem, w_in_smem))
+    _check_smem(f"K4 at w ({K}, {N})",
+                layer_bwd_smem(k, n, elem, w_in_smem,
+                               K4_GLOBAL_ROWS if w_in_smem
+                               else k4_global_rows(n)))
     return k, n, w_in_smem
 
 

@@ -6,7 +6,8 @@
 and inverse-CDF jitter and the sigma-noise regularizer.
 
 The trunk's path follows JAX's gates (pipeline.py:200-248, remat at
-:296-306), picked by the runtime flags alone (``trunk_path``):
+:296-306), picked by the runtime flags and the model (``trunk_path``).
+For a CodeNeRF model with view directions:
 
   use_pallas + pallas_backward   "fused": K1 forward, K2 backward
   use_pallas                     "fused_recompute": K1 forward, autograd
@@ -20,6 +21,18 @@ The trunk's path follows JAX's gates (pipeline.py:200-248, remat at
                                  pass's forward is recomputed in the
                                  backward (``torch.utils.checkpoint``)
 
+A FlexibleNeRF (vanilla NeRF) model always takes "rays"
+(``apply_flexible_rays``; K4 under ``pallas_layer_bwd``, ``remat`` as
+above): JAX's ``_pallas_active`` / ``_hybrid_active`` admit only CodeNeRF
+with view directions, so ``use_pallas`` and ``pallas_hybrid`` select
+nothing for it.  That is JAX's semantics, decided from the config before
+anything runs, not a fallback after a failure.
+
+NDC rays (``settings.ndc``, set by ``Harness.from_config`` for LLFF
+scenes): both renders sample and composite along ``core.geometry.
+ndc_rays`` of the batch and encode the view directions from the
+world-space ``rd``, as JAX's ``render_rays`` does (pipeline.py:283-291).
+
 JAX's ``default_backend() == "tpu"`` clause becomes the port's one rule:
 within a path, CUDA tensors run the kernels and CPU tensors their plain
 versions.  No path is picked after a kernel fails.  K1-K4 compute in
@@ -29,15 +42,18 @@ bf16 or f32, so every path runs an f32 config on the card as in JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from codenerf_tpu_torch.config import Config, EmbedderConfig, ModelSpec
 from codenerf_tpu_torch.core.encoding import positional_encoding
-from codenerf_tpu_torch.models.mlp import CodeNeRF, CodeNeRFConfig
-from codenerf_tpu_torch.models.ray_structured import apply_codenerf_rays
+from codenerf_tpu_torch.core.geometry import ndc_rays
+from codenerf_tpu_torch.models.mlp import (CodeNeRFConfig,
+                                           FlexibleNeRFConfig)
+from codenerf_tpu_torch.models.ray_structured import (apply_codenerf_rays,
+                                                      apply_flexible_rays)
 from codenerf_tpu_torch.ops.fused import recompute_codenerf, train_codenerf
 from codenerf_tpu_torch.ops.sampling import (base_z_vals, sample_pdf,
                                              sample_stratified)
@@ -49,11 +65,22 @@ def model_config_from_spec(spec: ModelSpec, embedder: EmbedderConfig,
                            compute_dtype: Optional[str] = None,
                            pallas_layer_bwd: bool = False,
                            split_fc_out: bool = False,
-                           fc_out_tail_sigma: bool = False
-                           ) -> CodeNeRFConfig:
+                           fc_out_tail_sigma: bool = False):
+    """The model config ``spec.type`` names (JAX pipeline.py:33-65)."""
+    if spec.type == "FlexibleNeRFModel":
+        return FlexibleNeRFConfig(
+            num_layers=spec.num_layers,
+            hidden_size=spec.hidden_size,
+            skip_connect_ids=tuple(spec.skip_connect_ids),
+            num_encoding_fn_xyz=embedder.num_encoding_fn_xyz,
+            num_encoding_fn_dir=embedder.num_encoding_fn_dir,
+            include_input_xyz=embedder.include_input_xyz,
+            include_input_dir=embedder.include_input_dir,
+            use_viewdirs=embedder.use_viewdirs,
+            compute_dtype=compute_dtype,
+            pallas_layer_bwd=pallas_layer_bwd)
     if spec.type != "CodeNeRFModel":
-        raise NotImplementedError(
-            f"model type {spec.type}: the port has CodeNeRF only so far")
+        raise ValueError(f"unknown model type: {spec.type}")
     return CodeNeRFConfig(
         hidden_size=spec.hidden_size,
         shape_code_size=shape_code_size,
@@ -83,8 +110,8 @@ class RenderSettings:
     num_encoding_fn_dir: int
     include_input_dir: bool
     log_sampling_dir: bool
-    coarse_cfg: CodeNeRFConfig
-    fine_cfg: CodeNeRFConfig
+    coarse_cfg: Union[CodeNeRFConfig, FlexibleNeRFConfig]
+    fine_cfg: Union[CodeNeRFConfig, FlexibleNeRFConfig]
     white_background: bool = False
     # train-stage sigma-noise regularizer (render_rays_train only)
     noise_std: float = 0.0
@@ -93,7 +120,8 @@ class RenderSettings:
     use_pallas: bool = False
     pallas_backward: bool = False
     pallas_hybrid: bool = False
-    # NDC rays: not ported yet
+    # NDC rays for forward-facing (LLFF) scenes: (height, width, focal)
+    # in pixels, or None for world-space rays
     ndc: Optional[Tuple[float, float, float]] = None
 
     @staticmethod
@@ -135,9 +163,13 @@ class RenderSettings:
             pallas_hybrid=rt.pallas_hybrid)
 
 
-def trunk_path(settings: RenderSettings) -> str:
-    """The trunk's path for ``settings``: "fused", "fused_recompute",
-    "hybrid" or "rays" (module docstring)."""
+def trunk_path(settings: RenderSettings, model_cfg=None) -> str:
+    """The trunk's path of ``model_cfg`` (default: the coarse model's)
+    under ``settings``: "fused", "fused_recompute", "hybrid" or "rays"
+    (module docstring)."""
+    model_cfg = model_cfg or settings.coarse_cfg
+    if not (isinstance(model_cfg, CodeNeRFConfig) and settings.use_viewdirs):
+        return "rays"
     if settings.use_pallas:
         return "fused" if settings.pallas_backward else "fused_recompute"
     if settings.pallas_hybrid:
@@ -152,21 +184,25 @@ def remat_active(settings: RenderSettings) -> bool:
     return settings.remat and trunk_path(settings) == "rays"
 
 
-def _forward(model: CodeNeRF, model_cfg: CodeNeRFConfig,
-             settings: RenderSettings, pts, rd, z_s, z_t):
-    """encode -> CodeNeRF over [R, S] samples on the trunk's path, the
+def _forward(model, model_cfg, settings: RenderSettings, pts, rd, z_s, z_t):
+    """encode -> the model over [R, S] samples on the trunk's path, the
     ray-structured products under ``model_cfg`` (the settings' config of
-    this model).  Under ``torch.no_grad`` the paths' Functions run their
-    forwards only."""
-    viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-    dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
-                                  settings.include_input_dir,
-                                  settings.log_sampling_dir)
-    path = trunk_path(settings)
+    this model).  A FlexibleNeRF takes no codes (``z_s``, ``z_t`` None)
+    and, without view directions, no direction encoding.  Under
+    ``torch.no_grad`` the paths' Functions run their forwards only."""
+    dir_enc = None
+    if settings.use_viewdirs:
+        viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+        dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
+                                      settings.include_input_dir,
+                                      settings.log_sampling_dir)
+    path = trunk_path(settings, model_cfg)
     if path == "rays":
         xyz_enc = positional_encoding(pts, settings.num_encoding_fn_xyz,
                                       settings.include_input_xyz,
                                       settings.log_sampling_xyz)
+        if isinstance(model_cfg, FlexibleNeRFConfig):
+            return apply_flexible_rays(model, xyz_enc, dir_enc, model_cfg)
         return apply_codenerf_rays(model, xyz_enc, dir_enc, z_s, z_t,
                                    model_cfg)
     kw = dict(num_freq_xyz=settings.num_encoding_fn_xyz,
@@ -184,34 +220,49 @@ def render_rays(models: dict, settings: RenderSettings, ro, rd, z_s, z_t,
                 ) -> Tuple[RenderOutputs, RenderOutputs]:
     """Coarse -> importance -> fine render of a ray batch, grad-free.
 
-    models: {"coarse": CodeNeRF, "fine": CodeNeRF}; ro, rd: [R, 3]; z_s,
-    z_t: [R, C] per-ray codes.  Returns (coarse, fine) RenderOutputs.
+    models: {"coarse", "fine"} (``CodeNeRF`` or ``FlexibleNeRF``); ro,
+    rd: [R, 3] world-space rays; z_s, z_t: [R, C] per-ray codes (None for
+    FlexibleNeRF).  Returns (coarse, fine) RenderOutputs.
     """
     if perturb or noise_std > 0.0:
         raise NotImplementedError(
             "stratified jitter and the sigma-noise regularizer belong to "
             "render_rays_train; the serving render uses perturb=False")
-    if settings.ndc is not None:
-        raise NotImplementedError("NDC rays are not ported yet")
-    if not settings.use_viewdirs:
-        raise ValueError("CodeNeRF needs view directions (use_viewdirs)")
+    _check_viewdirs(settings)
+    ro, rd, rd_view = _ndc(settings, ro, rd)
 
     z_grid = base_z_vals(settings.num_coarse, settings.near, settings.far,
                          settings.spacing_mode, dtype=ro.dtype,
                          device=ro.device)
     pts_c, z_c = sample_stratified(ro, rd, z_grid)
     raw_c = _forward(models["coarse"], settings.coarse_cfg, settings, pts_c,
-                     rd, z_s, z_t)
+                     rd_view, z_s, z_t)
     out_c = volume_render(raw_c, z_c, rd,
                           white_background=settings.white_background)
     # interior-weight slice per reference nerf/__init__.py:87
     pts_f, z_f = sample_pdf(ro, rd, out_c.weights[..., 1:-1], z_c,
                             settings.num_fine)
-    raw_f = _forward(models["fine"], settings.fine_cfg, settings, pts_f, rd,
-                     z_s, z_t)
+    raw_f = _forward(models["fine"], settings.fine_cfg, settings, pts_f,
+                     rd_view, z_s, z_t)
     out_f = volume_render(raw_f, z_f, rd,
                           white_background=settings.white_background)
     return out_c, out_f
+
+
+def _check_viewdirs(settings: RenderSettings) -> None:
+    if not settings.use_viewdirs and isinstance(settings.coarse_cfg,
+                                                CodeNeRFConfig):
+        raise ValueError("CodeNeRF needs view directions (use_viewdirs)")
+
+
+def _ndc(settings: RenderSettings, ro, rd):
+    """(ro, rd, rd_view): the rays the samples and the compositing use
+    (NDC under ``settings.ndc``) and the world-space rd the view
+    directions are encoded from."""
+    if settings.ndc is None:
+        return ro, rd, rd
+    h, w, focal = settings.ndc
+    return (*ndc_rays(ro, rd, h, w, focal), rd)
 
 
 def add_sigma_noise(raw, noise):
@@ -233,21 +284,19 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
     ``radiance_field_noise_std``).  The draws come from ``generator`` in
     the order coarse jitter, coarse noise, fine u, fine noise, or from
     ``draws`` ({"t_rand", "u", "noise_c", "noise_f"}) so that a test can
-    feed JAX's.  The trunk takes ``trunk_path(settings)``, under
-    ``remat_active(settings)`` through ``torch.utils.checkpoint``.
+    feed JAX's.  The trunk takes ``trunk_path(settings, model_cfg)``,
+    under ``remat_active(settings)`` through ``torch.utils.checkpoint``.
     """
-    if settings.ndc is not None:
-        raise NotImplementedError("NDC rays are not ported yet")
-    if not settings.use_viewdirs:
-        raise ValueError("CodeNeRF needs view directions (use_viewdirs)")
+    _check_viewdirs(settings)
+    ro, rd, rd_view = _ndc(settings, ro, rd)
     draws = draws or {}
     noisy = noise_std > 0.0 and perturb
 
     def forward(model, model_cfg, pts):
         if remat_active(settings):
-            return checkpoint(_forward, model, model_cfg, settings, pts, rd,
-                              z_s, z_t, use_reentrant=False)
-        return _forward(model, model_cfg, settings, pts, rd, z_s, z_t)
+            return checkpoint(_forward, model, model_cfg, settings, pts,
+                              rd_view, z_s, z_t, use_reentrant=False)
+        return _forward(model, model_cfg, settings, pts, rd_view, z_s, z_t)
 
     def noise(key, shape):
         if key in draws:

@@ -9,10 +9,12 @@ plus the scheduler:
   * ``iter``: the step;
   * ``model_nerf_coarse_state_dict``, ``model_nerf_fine_state_dict``,
     ``model_embedding_state_dict``: the modules' own state dicts, which
-    carry the reference's names;
+    carry the reference's names; the embedding's is ``{}`` for a vanilla
+    model, as JAX's exporter writes it (torch_import.py:281-285);
   * ``optimizer_state_dict``: the torch optimizer's, three param groups
-    [coarse, fine, embedding], each module's parameters in definition
-    order, which is the order the JAX package's importer
+    [coarse, fine, embedding] (one, coarse then fine, for a vanilla
+    model), each module's parameters in definition order, which is the
+    order the JAX package's importer
     (``torch_import.py::_torch_param_order``) reads;
   * ``scheduler_state_dict``: the LambdaLR's.
 
@@ -56,7 +58,8 @@ def state_dict(state: TrainState) -> dict:
         "iter": int(state.step),
         "model_nerf_coarse_state_dict": state.models["coarse"].state_dict(),
         "model_nerf_fine_state_dict": state.models["fine"].state_dict(),
-        "model_embedding_state_dict": state.tables.state_dict(),
+        "model_embedding_state_dict": ({} if state.tables is None
+                                       else state.tables.state_dict()),
         "optimizer_state_dict": state.optimizer.state_dict(),
         "scheduler_state_dict": state.scheduler.state_dict(),
     }
@@ -108,8 +111,9 @@ def restore_file(path: str | Path, state: TrainState) -> TrainState:
     for key in ("coarse", "fine"):
         state.models[key].load_state_dict(
             _strip_ddp_prefix(ckpt[f"model_nerf_{key}_state_dict"]))
-    state.tables.load_state_dict(
-        _strip_ddp_prefix(ckpt["model_embedding_state_dict"]))
+    if state.tables is not None:
+        state.tables.load_state_dict(
+            _strip_ddp_prefix(ckpt["model_embedding_state_dict"]))
     step = int(ckpt.get("iter", 0))
     opt_sd = ckpt.get("optimizer_state_dict") or {}
     if opt_sd:

@@ -16,8 +16,10 @@ shape and a 0-d step count, so ``eval/tto.py::select_per_object`` can
 rebuild them as ``cls(groups)`` and merge their state object by object.
 
 Training has three groups — coarse MLP and fine MLP at ``lr``, the code
-tables at ``embedding_lr`` — under a LambdaLR continuous exponential
-decay ``gamma ** (step / step_size)``; the scheduler is stepped once
+tables at ``embedding_lr`` — or, for a vanilla model without codes, one
+group of the coarse and then the fine MLP's parameters at ``lr`` (JAX's
+single transformation, optim.py:83-84), under a LambdaLR continuous
+exponential decay ``gamma ** (step / step_size)``; the scheduler is stepped once
 after each optimizer step, so the first update uses lr(0), as optax's
 schedules count.  Rprop takes its learning rate once, as its first step
 size (JAX evaluates the schedule at step 0).  Test-time optimization
@@ -230,16 +232,19 @@ def lr_at_step(base_lr: float, gamma: float, step_size: int,
 
 def build_optimizer(opt_cfg: OptimizerConfig, models: dict, tables=None):
     """(optimizer, scheduler) over ``models`` {"coarse", "fine"} and the
-    code tables.  AdamW runs at torch's defaults (weight decay 1e-2),
-    which is ``optax.adamw(lr, weight_decay=1e-2)``."""
+    code tables (None: a vanilla model, one group).  AdamW runs at
+    torch's defaults (weight decay 1e-2), which is ``optax.adamw(lr,
+    weight_decay=1e-2)``."""
     cls = _optimizer_class(opt_cfg.type)
-    groups = [{"params": list(models["coarse"].parameters()),
-               "lr": opt_cfg.lr},
-              {"params": list(models["fine"].parameters()),
-               "lr": opt_cfg.lr}]
-    if tables is not None:
-        groups.append({"params": list(tables.parameters()),
-                       "lr": opt_cfg.resolved_embedding_lr})
+    coarse = list(models["coarse"].parameters())
+    fine = list(models["fine"].parameters())
+    if tables is None:
+        groups = [{"params": coarse + fine, "lr": opt_cfg.lr}]
+    else:
+        groups = [{"params": coarse, "lr": opt_cfg.lr},
+                  {"params": fine, "lr": opt_cfg.lr},
+                  {"params": list(tables.parameters()),
+                   "lr": opt_cfg.resolved_embedding_lr}]
     optimizer = cls(groups, lr=opt_cfg.lr)
     gamma, step_size = opt_cfg.scheduler_gamma, opt_cfg.scheduler_step_size
     scheduler = torch.optim.lr_scheduler.LambdaLR(

@@ -5,7 +5,9 @@ train.py:70-114).
 As in the JAX package, each step consumes the whole ray batch
 (B images x num_random_rays) with one optimizer step; ``ray_chunks > 1``
 walks the batch in chunks and accumulates the gradient, which gives the
-same loss and the same update.  Ray selection runs on the device from a
+same loss and the same update.  A vanilla model (``state.tables`` None)
+looks up no codes and adds no embedding loss (JAX step.py:93-99, 144).
+Ray selection runs on the device from a
 ``torch.Generator``.  The step returns its metrics as tensors, so it never
 waits for the device.
 
@@ -67,9 +69,8 @@ def gather_ray_batch(directions, pose, pixels, object_ids,
 
 def _named_leaves(state: TrainState, grads: bool) -> list:
     """(name, tensor) of every parameter, or of its gradient."""
-    modules = {**state.models, "tables": state.tables}
     out = []
-    for prefix, module in modules.items():
+    for prefix, module in state.modules().items():
         for name, p in module.named_parameters():
             t = p.grad if grads else p
             if t is not None:
@@ -119,7 +120,9 @@ def make_train_step(settings: RenderSettings, state: TrainState,
         ss_c = ss_f = torch.zeros((), device=ro.device)
         for i in range(ray_chunks):
             sl = slice(i * rc, (i + 1) * rc)
-            z_s, z_t = lookup_codes(tables, ids[sl])
+            z_s = z_t = None
+            if tables is not None:
+                z_s, z_t = lookup_codes(tables, ids[sl])
             out_c, out_f = render_rays_train(
                 models, settings, ro[sl], rd[sl], z_s, z_t, generator,
                 perturb, settings.noise_std,
@@ -130,7 +133,7 @@ def make_train_step(settings: RenderSettings, state: TrainState,
             ss_c, ss_f = ss_c + c.detach(), ss_f + f.detach()
         loss_c, loss_f = ss_c / (R * 3), ss_f / (R * 3)
         # losses per reference train.py:103-108
-        if regularizer_lambda > 0:
+        if tables is not None and regularizer_lambda > 0:
             ns, nt = code_table_norms(tables)
             loss_e = regularizer_lambda * (ns + nt)
             loss_e.backward()

@@ -1,8 +1,13 @@
-"""Train a CodeNeRF model with the port (counterpart of ``train.py``):
+"""Train a CodeNeRF or vanilla NeRF model with the port (counterpart of
+``train.py``):
 
     python3 -m codenerf_tpu_torch.train_cli -c configs/srn-cars-code.yml \\
         [--load-checkpoint DIR_OR_CKPT] [--max-steps N] [--device cuda] \\
         [overrides like optimizer.lr=3e-4 ...]
+
+Every config in ``configs/`` runs: CodeNeRF on SRN, and vanilla NeRF
+(FlexibleNeRF) on Blender (``lego.yml``), LLFF with NDC rays
+(``fern.yml``) and SRN (``srn-cars.yml``, ``srn-chairs.yml``).
 
 The flags are ``train.py``'s, with ``--device`` (default ``cuda``; it
 raises without a card unless ``--device cpu`` is given) in place of

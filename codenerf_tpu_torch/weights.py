@@ -2,7 +2,8 @@
 dicts.
 
 The inputs are numpy views of the JAX pytrees (``{layer: {"w", "b"}}``
-with ``w`` as ``[in, out]``, and ``{"shape", "texture"}`` code tables);
+with ``w`` as ``[in, out]``, FlexibleNeRF's ``layers_xyz`` a list of
+them, and ``{"shape", "texture"}`` code tables);
 nothing here imports JAX.  The outputs use the reference state-dict
 names, as ``codenerf_tpu/train/torch_import.py`` writes them.  TTO
 variables ({"z_s", "z_t", "theta", "phi", "rho"} or {"z_s", "z_t",
@@ -15,17 +16,39 @@ import numpy as np
 import torch
 
 from codenerf_tpu_torch.device import resolve_device
-from codenerf_tpu_torch.models.mlp import LAYER_NAMES
+from codenerf_tpu_torch.models.mlp import LAYER_NAMES, FlexibleNeRF
+
+
+def _linear(out: dict, name: str, layer_np: dict) -> None:
+    w = np.asarray(layer_np["w"], np.float32)
+    b = np.asarray(layer_np["b"], np.float32)
+    out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
+    out[f"{name}.bias"] = torch.from_numpy(b.copy())
 
 
 def codenerf_from_jax(params_np: dict) -> dict:
     """CodeNeRF pytree -> ``CodeNeRF`` state dict ([in, out] -> [out, in])."""
     out = {}
     for name in LAYER_NAMES:
-        w = np.asarray(params_np[name]["w"], np.float32)
-        b = np.asarray(params_np[name]["b"], np.float32)
-        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
-        out[f"{name}.bias"] = torch.from_numpy(b.copy())
+        _linear(out, name, params_np[name])
+    return out
+
+
+def flexible_from_jax(params_np: dict) -> dict:
+    """FlexibleNeRF pytree -> ``FlexibleNeRF`` state dict, with the names
+    JAX's ``flexible_state_dict`` writes (``layer_dir1`` as
+    ``layers_dir.0``)."""
+    out = {}
+    _linear(out, "layer1", params_np["layer1"])
+    for i, layer in enumerate(params_np["layers_xyz"]):
+        _linear(out, f"layers_xyz.{i}", layer)
+    if "fc_feat" in params_np:
+        for name, key in (("fc_feat", "fc_feat"),
+                          ("layers_dir.0", "layer_dir1"),
+                          ("fc_alpha", "fc_alpha"), ("fc_rgb", "fc_rgb")):
+            _linear(out, name, params_np[key])
+    else:
+        _linear(out, "fc_out", params_np["fc_out"])
     return out
 
 
@@ -40,14 +63,19 @@ def codes_from_jax(codes_np: dict) -> dict:
 
 
 def params_from_jax(state, params_np: dict) -> None:
-    """Load the JAX package's ``{"coarse", "fine", "codes"}`` parameters
-    (numpy views) into a ``TrainState``'s models and code tables, in
-    place, so that both packages start from the same weights."""
+    """Load the JAX package's ``{"coarse", "fine", "codes"?}`` parameters
+    (numpy views) into a ``TrainState``'s models (``CodeNeRF`` or
+    ``FlexibleNeRF``) and code tables, in place, so that both packages
+    start from the same weights."""
     for key in ("coarse", "fine"):
         model = state.models[key]
-        sd = codenerf_from_jax(params_np[key])
-        model.load_state_dict({k: v.to(model.layer_xyz1.weight.device)
-                               for k, v in sd.items()}, strict=True)
+        convert = (flexible_from_jax if isinstance(model, FlexibleNeRF)
+                   else codenerf_from_jax)
+        dev = next(model.parameters()).device
+        model.load_state_dict({k: v.to(dev) for k, v in
+                               convert(params_np[key]).items()}, strict=True)
+    if state.tables is None:
+        return
     dev = state.tables.shape_embedding.weight.device
     state.tables.load_state_dict(
         {k: v.to(dev) for k, v in codes_from_jax(params_np["codes"]).items()},

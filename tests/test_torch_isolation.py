@@ -61,8 +61,16 @@ assert {"codenerf_tpu_torch.config.schema",
         "codenerf_tpu_torch.train.checkpoint", "codenerf_tpu_torch.train.loop",
         "codenerf_tpu_torch.train_cli", "codenerf_tpu_torch.eval_cli",
         "codenerf_tpu_torch.eval.capacity"} <= set(names)
+assert {"codenerf_tpu_torch.data.blender",
+        "codenerf_tpu_torch.data.llff"} <= set(names)
 from codenerf_tpu_torch.config import load_config
 assert load_config("configs/srn-cars-code.yml") == cfg
+# the vanilla configs' settings: FlexibleNeRF, and NDC rays importable
+from codenerf_tpu_torch.core import ndc_rays
+from codenerf_tpu_torch.models import FlexibleNeRFConfig
+for yml in ("lego", "fern", "srn-cars", "srn-chairs"):
+    vs = RenderSettings.from_config(load_config(f"configs/{yml}.yml"))
+    assert isinstance(vs.fine_cfg, FlexibleNeRFConfig), yml
 import contextlib, io, runpy
 for cli in ("train_cli", "eval_cli"):
     sys.argv = [cli, "--help"]

@@ -149,7 +149,7 @@ def test_layer_backward_plan_owns_whole_rays(R, S, K, N, per_ray, elem):
     (lambda: plan.layer_bwd_plan(60, 8, 32, 32, True, 2, N_SM),
      "whole rays"),
     (lambda: plan.trunk_fwd_plan(4, 8, 48, 32, 10, 2), "multiples of 32"),
-    (lambda: plan.trunk_fwd_plan(4, 8, 1024, 1024, 10, 2),
+    (lambda: plan.trunk_fwd_plan(4, 8, 4096, 4096, 10, 2),
      "shared memory"),
     (lambda: plan.xtg_plan([(10, 12, 16)], 2, N_SM), "multiples of 8"),
     (lambda: plan.xtg_plan([], 2, N_SM), "products"),

@@ -126,7 +126,7 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("w_shape,b_shape,match", [
-    ((16, 4096), (4096,), "shared memory"),
+    ((16, 8192), (8192,), "shared memory"),
     ((16, 32), (5, 32), r"\[N\] or \[R, 1, N\]"),
     ((16, 32), (3, 1, 32), r"per-ray b must be \[R, 1, N\]"),
 ])

@@ -208,11 +208,15 @@ def test_ssim_matches_jax(shape):
 
 def test_harness_refusals(synth_root, tmp_path):
     for key, item in (("runtime.num_devices=2", "item 3"),
-                      ("runtime.int8_serving=True", "item 2"),
-                      ("dataset.type=llff", "item 1")):
+                      ("runtime.int8_serving=True", "item 2")):
         cfg = load_config(BASE, _overrides(synth_root, tmp_path) + [key])
         with pytest.raises(NotImplementedError, match=item):
             Harness.from_config(cfg, device="cpu")
+    # LLFF is ported: on the SRN tree its loader finds no poses_bounds.npy
+    cfg = load_config(BASE, _overrides(synth_root, tmp_path)
+                      + ["dataset.type=llff"])
+    with pytest.raises(FileNotFoundError, match="poses_bounds.npy"):
+        Harness.from_config(cfg, device="cpu")
     jittered = tmp_path / "jit" / "srn_cars"
     subprocess.run(
         [sys.executable, "tools/make_synth_data.py", "--out", str(jittered),

@@ -151,9 +151,15 @@ def test_training_options_are_refused():
         render_rays(models, ps, ro, rd, zs, zt, perturb=True)
     with pytest.raises(NotImplementedError):
         render_rays(models, ps, ro, rd, zs, zt, noise_std=0.1)
-    with pytest.raises(NotImplementedError, match="NDC"):
-        render_rays(models, dataclasses.replace(ps, ndc=(8.0, 8.0, 10.0)),
-                    ro, rd, zs, zt)
+    # NDC rays are ported (held against JAX in test_torch_ndc.py): the
+    # serving render takes them
+    out_c, out_f = render_rays(
+        models, dataclasses.replace(ps, ndc=(8.0, 8.0, 10.0), near=0.0,
+                                    far=1.0, spacing_mode="lindisp"),
+        ro, rd, zs, zt)
+    assert out_f.rgb.shape == (4, 3)
+    assert bool(torch.isfinite(out_c.rgb).all() & torch.isfinite(
+        out_f.rgb).all())
 
 
 def test_renderer_refuses_cuda_without_a_card(monkeypatch):

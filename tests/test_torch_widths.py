@@ -86,26 +86,70 @@ def test_k4_layout_accepts_the_widths(KN, elem, padded, w_in_smem):
     assert p["rows"]["smem"] <= plan.SMEM_LIMIT
 
 
+# hidden 864: past the 832 a full row tile held; K4's N 1760: past 1744
+WIDER = dict(hidden_size=864, shape_code_size=864, texture_code_size=864)
+
+
+@pytest.mark.parametrize("elem,rows", [(2, (32, 32)), (4, (16, 16))],
+                         ids=["bf16", "f32"])
+def test_row_tiles_shrink_with_the_width(elem, rows):
+    """Widths whose full row tile shared memory cannot hold run a half or a
+    quarter tile (``plan.row_tile``), up to the widths where JAX's own
+    kernels stop: at a padded width of 3552 its fused trunk's four
+    [h, h] bf16 weights alone fill its 100 MB VMEM limit."""
+    f = plan.k1_plan(4096, 32, 864, 864, 6, elem, N_SM)
+    b = plan.trunk_bwd_plan(4096, 32, 864, 864, 6, True, elem, N_SM, False)
+    assert f["route"] == "rows"
+    assert (f["tile_rows"], b["rows"]["tile_rows"]) == rows
+    assert f["tile_rows"] < plan.tile_rows(elem)
+    # hidden 1760 and K4's N 3520 take a quarter tile
+    quarter = plan.tile_rows(elem) // 4
+    assert plan.k1_plan(64, 8, 1760, 1760, 6, elem, N_SM)["tile_rows"] == \
+        quarter
+    assert plan.trunk_bwd_plan(64, 8, 1760, 1760, 6, True, elem, N_SM,
+                               False)["rows"]["tile_rows"] == quarter
+    assert plan.layer_bwd_plan(64, 8, 16, 3520, True, elem, N_SM,
+                               False)["rows"]["tile_rows"] == 8
+    for h in range(32, 3553, 32):
+        assert plan.k1_plan(64, 8, h, h, 10, elem, N_SM)["smem"] <= \
+            plan.SMEM_LIMIT
+        b = plan.trunk_bwd_plan(64, 8, h, h, 10, True, elem, N_SM, True)
+        assert b["rows"]["smem"] <= plan.SMEM_LIMIT
+        assert b["rows"]["tile_rows"] in {plan.tile_rows(elem) >> i
+                                         for i in range(3)}
+    k, n, w_in_smem = plan.k4_layout(16, 1760, elem)
+    p = plan.layer_bwd_plan(64 * 8, 8, k, n, True, elem, N_SM, w_in_smem)
+    assert (n, w_in_smem, p["rows"]["tile_rows"]) == (1760, False, 16)
+    assert p["rows"]["smem"] <= plan.SMEM_LIMIT
+    for n in range(16, 6449, 16):
+        k, n, w_in_smem = plan.k4_layout(16, n, elem)
+        assert plan.layer_bwd_plan(64, 8, k, n, False, elem, N_SM,
+                                   w_in_smem)["rows"]["smem"] <= \
+            plan.SMEM_LIMIT
+
+
 def test_shared_memory_still_bounds_the_width():
-    """What stays refused: a row tile that shared memory cannot hold."""
-    with pytest.raises(ValueError, match=r"h=1024, s=1024"):
-        plan.k1_plan(64, 8, 1000, 1000, 10, 2, N_SM)
-    with pytest.raises(ValueError, match=r"w \(16, 4096\)"):
-        plan.k4_layout(16, 4096, 2)
+    """What stays refused: a quarter row tile that shared memory cannot
+    hold (past JAX's own kernels' VMEM, see ``test_row_tiles_shrink_with_the_width``)."""
+    with pytest.raises(ValueError, match=r"h=4096, s=4096"):
+        plan.k1_plan(64, 8, 4090, 4090, 10, 2, N_SM)
+    with pytest.raises(ValueError, match=r"w \(16, 8192\)"):
+        plan.k4_layout(16, 8192, 2)
 
 
 # ---- padding is exact ----
 
-def _trunk_inputs(compute_dtype, R=6, S=8, seed=0):
-    """The trunk's inputs as the JAX VJP sees them at hidden 48 / codes
-    40, numpy f32."""
-    jcfg, tcfg = configs(compute_dtype, **WIDE)
+def _trunk_inputs(compute_dtype, R=6, S=8, seed=0, widths=WIDE):
+    """The trunk's inputs as the JAX VJP sees them at ``widths`` (hidden 48
+    / codes 40 by default), numpy f32."""
+    jcfg, tcfg = configs(compute_dtype, **widths)
     params, _ = jax_and_port_models(jcfg, tcfg, seed=seed)
     rng = np.random.default_rng(seed)
+    sc = jcfg.shape_code_size
     pts = rng.uniform(-1.5, 1.5, (R, S, 3)).astype(np.float32)
     dirs = rng.normal(size=(R, jcfg.dim_dir)).astype(np.float32)
-    zs = rng.normal(size=(R, SC)).astype(np.float32)
-    zt = rng.normal(size=(R, SC)).astype(np.float32)
+    zs = rng.normal(size=(R, sc)).astype(np.float32)
+    zt = rng.normal(size=(R, sc)).astype(np.float32)
     g = rng.normal(size=(R, S, 4)).astype(np.float32)
     per_ray = jfused._per_ray_parts(params, jcfg, *map(jnp.asarray,
                                                        (dirs, zs, zt)))
@@ -262,3 +306,45 @@ def test_padded_k4_plain_matches_jax_pallas(bf16):
     _close(dx[..., :SC].float(), want[0], cd, "dx")
     _close(dw[:SC, :24], want[1], None, "dw")
     _close(db[..., :24], want[2], None, "db")
+
+
+@pytest.mark.parametrize("compute_dtype", CDS.values(), ids=CDS.keys())
+def test_wide_trunk_backward_matches_jax_pallas(compute_dtype):
+    """K2's plain version at hidden 864 (a half or quarter row tile on the
+    card) against JAX's Pallas backward, small R."""
+    pts, per_ray, weights, g = _trunk_inputs(compute_dtype, R=2, S=4,
+                                             seed=5, widths=WIDER)
+    tr, tw = _torch(per_ray, weights)
+    got = trunk_backward_plain(t(pts), tr, tw["b1"], tw, t(g),
+                               compute_dtype=_cd(compute_dtype))
+    want = jfused._trunk_bwd_pallas(
+        jnp.asarray(pts), {k: jnp.asarray(v) for k, v in per_ray.items()},
+        jnp.asarray(weights["b1"]),
+        {k: None if v is None else jnp.asarray(v) for k, v in weights.items()},
+        jnp.asarray(g), S=pts.shape[1], T=2,
+        compute_dtype=jnp.bfloat16 if compute_dtype else jnp.float32)
+    _close(got[0], want[0], compute_dtype, "g_pts")
+    for k in PER_RAY_KEYS:
+        _close(got[1][k], want[1][k], compute_dtype, k)
+    for k, v in got[3].items():
+        if v is not None:
+            _close(v, want[3][k], compute_dtype, k)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_wide_k4_plain_matches_jax_pallas(bf16):
+    """K4's plain version at N = 1760 (a 16-row tile on the card) against
+    JAX's Pallas backward."""
+    x, w, b, y, g, cd = _layer_inputs(16, 1760, bf16, seed=6, R=2, S=8)
+    g = g * 1e-2        # a cotangent of a loss's scale: dx sums 1760 terms
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+
+    def j(a):
+        return jnp.asarray(a.float().numpy()).astype(
+            jdt if a.dtype == torch.bfloat16 else jnp.float32)
+    want = jlb.linear_relu_bwd_pallas(j(x), j(w), j(b), j(y), j(g),
+                                      jdt if bf16 else None, tile_rows=16,
+                                      vmem_limit=None)
+    got = linear_relu_bwd_plain(x, w, b, y, g, cd)
+    for name, a, e in zip(("dx", "dw", "db"), got, want):
+        _close(a.float(), e, cd, name)
