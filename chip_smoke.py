@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``codenerf_tpu_torch``).
 
-Drives the port's serving render, train step, test-time optimization
-(TTO), train entry point and eval entry point on one NVIDIA card at the
-flagship width of ``configs/srn-cars-code.yml`` (values from
-``SRN_CARS_CODE``; the cli and eval phases read the file itself), and
+Drives the port's serving render (full precision and int8), train step,
+test-time optimization (TTO), train entry point and eval entry point on
+one NVIDIA card at the flagship width of ``configs/srn-cars-code.yml``
+(values from ``SRN_CARS_CODE``; the cli and eval phases read the file
+itself), and
 vanilla NeRF at the widths of ``configs/lego.yml``, ``fern.yml`` and
 ``srn-cars.yml``, with random weights from a seed, and the eval phase
 with the committed trained weights:
@@ -41,6 +42,16 @@ with the committed trained weights:
                CPU path (40 dB); then the same image with the YAML's own
                flags, through the ray-structured forward (ms per image,
                PSNR against the K1 image; 16x16 card against CPU, 40 dB).
+  4b. int8  — int8 serving (``models/quantized.py``; its products are
+               ``torch._int_mm``) of the same models, without and with the
+               encode stream: calibration by ``harness.int8_render_params``'
+               draw on the card (ms), the 128x128 image (``_int_mm`` calls
+               per image, ms per image beside the K1 image's and the YAML
+               flags' image's, PSNR against the K1 image), gated card
+               against CPU: a 16x16 image from the same quantized buffers
+               moved to the CPU (40 dB) and the calibration of 1024 rays on
+               each (``s_act`` relRMS 1e-2); a profile of one int8 image
+               (busy, idle, the int8 GEMMs' share).
   5. profile — one more render under ``torch.profiler``: device busy
                time by kernel, K1's share, the idle share.
   6. train   — the flagship train step from a seeded student with 8
@@ -116,7 +127,12 @@ with the committed trained weights:
                (RESULTS.md), the K capacity chose, objects per minute and
                the launches the subprocess counted; gates: exit 0, 8 finite
                rows, K1 and K2 launched, mean PSNR >= 22 dB; and the
-               port's SSIM on the card against the CPU's (1e-4).
+               port's SSIM on the card against the CPU's (1e-4).  With
+               ``runtime.int8_serving`` every object is also rendered
+               through the int8 serving path: the trained-weights A/B,
+               8 finite int8 rows, the int8 mean PSNR >= the full-precision
+               mean - 1 dB (RESULTS.md's TPU A/B: -0.28 dB on the cars
+               category mean).
  10. vanilla — vanilla NeRF (FlexibleNeRF) at the full widths of
                ``configs/lego.yml``, ``fern.yml`` and ``srn-cars.yml``, K4
                under ``pallas_layer_bwd``: K4 against its plain version at
@@ -139,6 +155,11 @@ with the committed trained weights:
                and imageio unimportable; peak memory), its checkpoint
                restored bit-identically, the eval CLI on it (finite PSNR);
                and 3 steps of srn-cars.yml on the cli phase's SRN tree.
+               Each scene's teacher also renders an int8 image (lego
+               128x128, fern 504x378 in NDC; calibrated as JAX's
+               calibrator does, without NDC): ms and PSNR against full
+               precision, gated card against CPU (40 dB) from the same
+               buffers on a 16x16 / 32x24 image.
  11. result  — the kernel table as one JSON line (with each kernel's
                launches per TTO step, in the cli legs, in the eval and in
                the vanilla steps), the card line, and the last line
@@ -164,6 +185,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -198,7 +220,8 @@ from codenerf_tpu_torch.train import (checkpoint, init_train_state,
                                       lr_at_step, make_train_step)
 from codenerf_tpu_torch.train import loop
 from codenerf_tpu_torch.eval import capacity
-from codenerf_tpu_torch.harness import Harness
+from codenerf_tpu_torch.harness import Harness, int8_render_params
+from codenerf_tpu_torch.models import quantized
 from codenerf_tpu_torch.utils.logging import MetricLogger
 
 SEED = 0
@@ -1901,11 +1924,199 @@ def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# the int8 serving path (models/quantized.py): its products are
+# torch._int_mm, cuBLASLt's int8 GEMM; the profile counts every device
+# kernel whose name holds one of these as an int8 GEMM (the H100 showed
+# cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16)
+INT8_GEMM_NAMES = ("gemm_s8", "s8s8", "i8i8", "imma", "igemm")
+INT8_CHECK_RAYS = 1024      # the calibration held card against CPU
+INT8_RENDERS = 10
+
+
+def cpu_copy(models: dict) -> dict:
+    """The {"coarse", "fine"} modules copied to the CPU."""
+    return {k: copy.deepcopy(m).to("cpu") for k, m in models.items()}
+
+
+def int8_harness(cfg, settings, dirs, encode_stream):
+    """What ``harness.int8_render_params`` reads of a ``Harness``: the
+    direction grid, the settings, and the config with int8 serving on."""
+    rt = dataclasses.replace(cfg.runtime, int8_serving=True,
+                             int8_encode=encode_stream)
+    return types.SimpleNamespace(directions=dirs, settings=settings,
+                                 cfg=dataclasses.replace(cfg, runtime=rt))
+
+
+def timed_renders(render, args, n) -> list:
+    """ms of ``n`` synchronised calls of ``render(*args)``."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def s_act_rel_rms(got: dict, want: dict) -> float:
+    """The worst relRMS over both models' activation scales."""
+    worst = 0.0
+    for key in ("coarse", "fine"):
+        for name in want[key].s_act.keys():
+            a = got[key].s_act[name].cpu().double()
+            b = want[key].s_act[name].cpu().double()
+            worst = max(worst, float(torch.linalg.norm(a - b)
+                                     / torch.linalg.norm(b)))
+    return worst
+
+
+def int8_phase(cfg, settings, models, cpu_models, z_s, z_t, pose, dirs,
+               small_dirs, k1_img, k1_ms, rays_ms, card) -> dict:
+    """Int8 serving of the flagship model (phase 4b), without and with the
+    encode stream: calibration on the card by ``int8_render_params``' draw
+    (16,384 pixels of the 128x128 view, median of 3 calls), the image
+    through ``make_image_renderer`` (``_int_mm`` calls per image; median
+    of ``INT8_RENDERS`` synchronised renders; PSNR against the K1 image),
+    gated card against CPU: a 16x16 image from the same quantized
+    buffers moved to the CPU (40 dB) and the calibration of
+    ``INT8_CHECK_RAYS`` rays on both (``s_act`` relRMS 1e-2); a profile
+    of one image."""
+    size, small = dirs.shape[0], small_dirs.shape[0]
+    chunk = cfg.nerf.validation.chunksize
+    render = make_image_renderer(settings, size, size, chunk, "cuda")
+    n_chunks = -(-size * size // chunk)
+    out = {}
+    for encode in (False, True):
+        label = "int8 encode" if encode else "int8"
+        on_card = int8_harness(cfg, settings, dirs, encode)
+        calib_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qm = int8_render_params(on_card, models, pose, z_s, z_t)
+            torch.cuda.synchronize()
+            calib_ms.append((time.perf_counter() - t0) * 1e3)
+        render(qm, dirs, pose, z_s, z_t)                   # warm-up
+        torch.cuda.synchronize()
+        quantized._qdot.calls = 0
+        img = render(qm, dirs, pose, z_s, z_t)
+        torch.cuda.synchronize()
+        calls = quantized._qdot.calls
+        want_calls = 2 * n_chunks * (7 if encode else 6)
+        if calls != want_calls or tuple(img.shape) != (size * size, 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise RuntimeError(f"{label}: {calls} _int_mm calls (want "
+                               f"{want_calls}), image {tuple(img.shape)}")
+        ms = timed_renders(render, (qm, dirs, pose, z_s, z_t), INT8_RENDERS)
+        int8_ms = statistics.median(ms)
+        psnr_k1 = float(mse2psnr(torch.mean((img - k1_img) ** 2)))
+        # card against CPU: one 16x16 image from the same buffers, and the
+        # calibration of INT8_CHECK_RAYS rays on each
+        q_cpu = cpu_copy(qm)
+        img_gpu = make_image_renderer(settings, small, small, 256, "cuda")(
+            qm, small_dirs, pose, z_s, z_t)
+        img_cpu = make_image_renderer(settings, small, small, 256, "cpu")(
+            q_cpu, small_dirs.cpu(), pose.cpu(), z_s.cpu(), z_t.cpu())
+        psnr_cpu = float(mse2psnr(torch.mean((img_gpu.cpu() - img_cpu)
+                                             ** 2)))
+        q_g = int8_render_params(on_card, models, pose, z_s, z_t,
+                                 n_rays=INT8_CHECK_RAYS)
+        q_c = int8_render_params(
+            int8_harness(cfg, settings, dirs.cpu(), encode), cpu_models,
+            pose.cpu(), z_s.cpu(), z_t.cpu(), n_rays=INT8_CHECK_RAYS)
+        calib_rel = s_act_rel_rms(q_g, q_c)
+        row = {"ms": int8_ms, "ms_all": ms,
+               "rays_per_s": size * size / int8_ms * 1e3,
+               "calibration_ms": statistics.median(calib_ms),
+               "calibration_ms_all": calib_ms, "int_mm_per_image": calls,
+               "psnr_vs_k1": psnr_k1, "psnr_card_vs_cpu": psnr_cpu,
+               "s_act_rel_rms_card_vs_cpu": calib_rel,
+               "k1_ms": k1_ms, "rays_ms": rays_ms}
+        print(f"{label} {size}x{size}: median {int8_ms:.6g} ms/image "
+              f"({size * size / int8_ms * 1e3:.6g} rays/s) against K1 "
+              f"{k1_ms:.6g} and the YAML's flags {rays_ms:.6g} in this call; "
+              f"calibration {statistics.median(calib_ms):.6g} ms (first "
+              f"{calib_ms[0]:.6g}); {calls} _int_mm calls per image; "
+              f"PSNR(vs K1 image)={psnr_k1:.6g} dB; {small}x{small} "
+              f"PSNR(card vs CPU, same buffers)={psnr_cpu:.6g} dB; "
+              f"calibration of {INT8_CHECK_RAYS} rays card vs CPU s_act "
+              f"relRMS {calib_rel:.4g} on {card}", flush=True)
+        if not psnr_cpu >= PSNR_GATE:
+            raise RuntimeError(f"{label} card vs CPU image: {psnr_cpu} dB < "
+                               f"{PSNR_GATE}")
+        if not calib_rel <= REL_RMS_GATE:
+            raise RuntimeError(f"{label} calibration card vs CPU: s_act "
+                               f"relRMS {calib_rel} > {REL_RMS_GATE}")
+        if not encode:
+            prof = profile_call(render, (qm, dirs, pose, z_s, z_t), int8_ms,
+                                {"int8 GEMM": INT8_GEMM_NAMES})
+            row["profile"] = prof
+            if prof["device_busy_ms"]:
+                print(f"{label} profile: device busy "
+                      f"{prof['device_busy_ms']:.6g} ms per image against "
+                      f"the unprofiled {int8_ms:.6g} ms (idle share "
+                      f"{prof['idle_share']:.4g}); int8 GEMMs "
+                      f"{prof['kernel_ms']['int8 GEMM']:.6g} ms "
+                      f"({prof['kernel_share_of_busy']['int8 GEMM']:.4g} of "
+                      f"busy); top kernels {prof['top']} on {card}",
+                      flush=True)
+            else:
+                print(f"{label} profile: torch.profiler recorded no device "
+                      f"time: the breakdown is not measured", flush=True)
+        out["encode" if encode else "trunk"] = row
+        del qm, q_cpu, q_g, q_c
+        torch.cuda.empty_cache()
+    return out
+
+
+def vanilla_int8(label, harness, models, pose, small, card) -> dict:
+    """A vanilla model's int8 image at the harness's size and settings
+    (calibrated by ``int8_render_params`` at ``pose``): ms per image
+    (median of 5) beside the full-precision image's (median of 3), the
+    PSNR between them; gated card against CPU on ``small`` = (settings,
+    h, w, directions) from the same quantized buffers (40 dB)."""
+    s, h, w = harness.settings, harness.height, harness.width
+    render = make_image_renderer(s, h, w, harness.cfg.nerf.validation.
+                                 chunksize, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qm = int8_render_params(harness, models, pose, None, None)
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    img_fp = render(models, harness.directions, pose, None, None)
+    img_q = render(qm, harness.directions, pose, None, None)
+    fp_ms = statistics.median(timed_renders(
+        render, (models, harness.directions, pose, None, None), 3))
+    q_ms = statistics.median(timed_renders(
+        render, (qm, harness.directions, pose, None, None), 5))
+    if not bool(torch.isfinite(img_q).all()):
+        raise RuntimeError(f"{label} int8 image is not finite")
+    psnr_fp = float(mse2psnr(torch.mean((img_q - img_fp) ** 2)))
+    ss, sh, sw, sdirs = small
+    img_gpu = make_image_renderer(ss, sh, sw, 256, "cuda")(
+        qm, sdirs, pose, None, None)
+    img_cpu = make_image_renderer(ss, sh, sw, 256, "cpu")(
+        cpu_copy(qm), sdirs.cpu(), pose.cpu(), None, None)
+    psnr_cpu = float(mse2psnr(torch.mean((img_gpu.cpu() - img_cpu) ** 2)))
+    print(f"vanilla {label} int8 {w}x{h}: median {q_ms:.6g} ms/image "
+          f"({h * w / q_ms * 1e3:.6g} rays/s) against full precision "
+          f"{fp_ms:.6g} ms; calibration {calib_ms:.6g} ms; PSNR(int8 vs "
+          f"full precision)={psnr_fp:.6g} dB; {sw}x{sh} PSNR(card vs CPU, "
+          f"same buffers)={psnr_cpu:.6g} dB on {card}", flush=True)
+    if not psnr_cpu >= PSNR_GATE:
+        raise RuntimeError(f"vanilla {label} int8 card vs CPU image: "
+                           f"{psnr_cpu} dB < {PSNR_GATE}")
+    return {"ms": q_ms, "fp_ms": fp_ms, "calibration_ms": calib_ms,
+            "psnr_vs_fp": psnr_fp, "psnr_card_vs_cpu": psnr_cpu}
+
+
 # the eval phase: the committed flagship-v4-cars-42100 weights on the v4
 # lineage's own val split, regenerated here with the lineage's arguments
 # (RESULTS.md "Session 13", tools/run_campaign.sh), by the campaign's
 # category protocol (tools/run_campaign.sh: 8 restarts, K = 4, 300 TTO
-# steps, a 300-step flip rescue) through K1 + K2
+# steps, a 300-step flip rescue) through K1 + K2, every image rendered
+# again through the int8 serving path (the trained-weights A/B)
 EVAL_DATA = ("--name", "cars", "--style", "proc", "--objects", "400",
              "--val-objects", "8", "--views", "50", "--val-views", "10",
              "--size", "128", "--seed", "7", "--only-stage", "val")
@@ -1914,9 +2125,14 @@ EVAL_FLAGS = ("--num-objects", "400", "--all-objects", "--batch-objects",
               "4")
 EVAL_OVERRIDES = ("optimizer.pose_restarts=8",
                   "optimizer.pose_flip_steps=300", "runtime.use_pallas=True",
-                  "runtime.pallas_backward=True")
+                  "runtime.pallas_backward=True", "runtime.int8_serving=True")
 EVAL_OBJECTS = 8
 EVAL_PSNR_GATE = 22.0
+# the int8 category mean may sit this far under full precision (RESULTS.md
+# "int8 serving quality matrix (hardware, session 6)": the worst family
+# -0.39 dB, the cars category mean -0.28)
+EVAL_INT8_DROP_DB = 1.0
+JAX_INT8_CARS_DELTA_DB = -0.28
 # the same checkpoint by the same protocol in the JAX package
 # (RESULTS.md, "Session 14 (round 5)")
 JAX_CATEGORY = {"psnr": 26.57, "ssim": 0.823, "pose_error": 0.479}
@@ -1934,12 +2150,14 @@ EVAL_RUNNER = (
     "from codenerf_tpu_torch import eval_cli; "
     "from codenerf_tpu_torch.ops.fused import trunk_forward, trunk_backward; "
     "from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd; "
+    "from codenerf_tpu_torch.models.quantized import _qdot; "
     "out = eval_cli.main(sys.argv[1:]); "
     "print('result ' + json.dumps({'summary': out, 'launches': {"
     "'K1': trunk_forward.launches, "
     "'K2': trunk_backward.launches_recompute, "
     "'K3': trunk_backward.launches_stored, "
-    "'K4': linear_relu_bwd.launches}, 'loaded': sorted("
+    "'K4': linear_relu_bwd.launches}, 'int_mm': _qdot.calls, 'loaded': "
+    "sorted("
     "m for m, v in sys.modules.items() if v is not None and "
     f"m.split('.')[0] in {REFUSED!r})}}))")
 
@@ -2011,8 +2229,10 @@ def eval_phase(models, tables, dirs, card) -> dict:
     (imageio stood in for by ``png_bytes``) beside an empty train split,
     and ``python3 -m codenerf_tpu_torch.eval_cli --all-objects`` on it
     with the committed checkpoint, the campaign's protocol and K1 + K2
-    (``use_pallas`` + ``pallas_backward``); gated on 8 finite rows, K1
-    and K2 launched, and the category mean PSNR."""
+    (``use_pallas`` + ``pallas_backward``), and ``runtime.int8_serving``:
+    each object's image also through the int8 serving path; gated on 8
+    finite rows (int8 columns too), K1 and K2 launched, the category mean
+    PSNR, and the int8 mean within ``EVAL_INT8_DROP_DB`` of it."""
     cap = capacity_factors(models, tables, dirs, card)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
     try:
@@ -2088,6 +2308,25 @@ def eval_phase(models, tables, dirs, card) -> dict:
         if not summary["psnr_mean"] >= EVAL_PSNR_GATE:
             raise RuntimeError(f"eval: mean PSNR {summary['psnr_mean']} < "
                                f"{EVAL_PSNR_GATE}")
+        int8_rows = [(r["psnr_int8"], r["ssim_int8"]) for r in rows
+                     if "psnr_int8" in r and "ssim_int8" in r]
+        drop = summary.get("psnr_int8_mean", float("nan")) - \
+            summary["psnr_mean"]
+        print(f"eval int8: {len(int8_rows)} objects rendered through the "
+              f"int8 serving path ({res['int_mm']} _int_mm calls): mean PSNR "
+              f"{summary.get('psnr_int8_mean', float('nan')):.4f} / SSIM "
+              f"{summary.get('ssim_int8_mean', float('nan')):.4f} against "
+              f"full precision {summary['psnr_mean']:.4f} / "
+              f"{summary['ssim_mean']:.4f}: {drop:+.4f} dB; JAX on the TPU "
+              f"(RESULTS.md, int8 serving quality matrix, session 6, cars "
+              f"category mean of another checkpoint): "
+              f"{JAX_INT8_CARS_DELTA_DB:+.2f} dB on {card}", flush=True)
+        if len(int8_rows) != EVAL_OBJECTS or not finite(
+                [v for r in int8_rows for v in r]) or not (
+                drop >= -EVAL_INT8_DROP_DB):
+            raise RuntimeError(f"eval int8: {len(int8_rows)} rows, int8 mean "
+                               f"{drop:+.4f} dB from full precision (gate "
+                               f"-{EVAL_INT8_DROP_DB})")
         # the eval's SSIM is f32 on the card: a val target against a
         # blurred, noisy copy, on the card and on the CPU
         target = torch.from_numpy(
@@ -2104,6 +2343,7 @@ def eval_phase(models, tables, dirs, card) -> dict:
             raise RuntimeError(f"eval: SSIM on the card {ssim_card} against "
                                f"{ssim_cpu} on the CPU")
         return {"summary": summary, "launches": launches, "capacity": cap,
+                "int_mm": res["int_mm"], "int8_drop_db": drop,
                 "steps_per_group": steps, "tto_steps_per_s": steps_per_s,
                 "cli_s": wall_s, "data_s": gen_s, "jax": JAX_CATEGORY}
     finally:
@@ -2300,7 +2540,6 @@ def lego_phase(work: Path, card) -> dict:
     t0 = time.perf_counter()
     n_img = write_blender_tree(root, RenderSettings.from_config(cfg),
                                teacher)
-    del teacher
     harness = Harness.from_config(cfg, device="cuda")
     n_rays = cfg.nerf.ray_sampler.num_random_rays
     print(f"vanilla lego: wrote {n_img} RGBA PNGs of {LEGO_SIZE}x{LEGO_SIZE} "
@@ -2310,6 +2549,15 @@ def lego_phase(work: Path, card) -> dict:
           f"{time.perf_counter() - t0:.4g} s; the train batch cut from "
           f"{cfg.dataset.train_batch_size} images to 1 ({n_rays} rays a "
           f"step)", flush=True)
+    # the teacher's int8 image at the first val view's pose
+    val = harness.val_dataset[0]
+    small = 16
+    focal = float(val["intrinsic"][0, 0]) * small / harness.width
+    int8 = vanilla_int8("lego", harness, teacher,
+                        torch.from_numpy(val["pose"]).cuda(),
+                        (harness.settings, small, small,
+                         centred_dirs(small, small, focal)), card)
+    del teacher
     batch = vanilla_batch(harness, 1)
     out = {}
     grads = {}
@@ -2401,6 +2649,7 @@ def lego_phase(work: Path, card) -> dict:
     del g32, p32
     torch.cuda.empty_cache()
     out["images"] = n_img
+    out["int8"] = int8
     return out
 
 
@@ -2459,9 +2708,13 @@ def fern_phase(work: Path, card) -> dict:
     if not psnr >= PSNR_GATE:
         raise RuntimeError(f"fern NDC card vs CPU image: {psnr} dB < "
                            f"{PSNR_GATE}")
+    # the teacher's int8 image at the val pose, calibrated as JAX's
+    # calibrator does (world-space points, no NDC)
+    int8 = vanilla_int8("fern NDC", harness, teacher, pose,
+                        (small, h, w, centred_dirs(h, w, focal)), card)
     return {"step_ms": statistics.median(ms), "step_ms_all": ms,
             "launches_per_step": per_step, "loss_fine": fine,
-            "ndc_psnr_card_vs_cpu": psnr, "images": n_img}
+            "ndc_psnr_card_vs_cpu": psnr, "images": n_img, "int8": int8}
 
 
 def vanilla_cli(work: Path, card) -> dict:
@@ -2797,6 +3050,12 @@ def main():
     phase("render", t0)
 
     t0 = time.perf_counter()
+    int8 = int8_phase(cfg, settings, models, cpu_models, z_s, z_t, pose,
+                      dirs, directions(small), img, ms_img,
+                      statistics.median(rays_ms), card)
+    phase("int8", t0)
+
+    t0 = time.perf_counter()
     prof = profile_call(render, (models, dirs, pose, z_s, z_t), ms_img,
                         {"K1": ("trunk_fwd_kernel",)})
     if prof["device_busy_ms"]:
@@ -2983,6 +3242,10 @@ def main():
             for k, rows in vanilla_k4_steps.items()},
     })
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"int8": {
+        **int8, "lego": vanilla["lego"]["int8"],
+        "fern": vanilla["fern"]["int8"], "eval_int_mm": ev["int_mm"],
+        "eval_drop_db": ev["int8_drop_db"]}}), flush=True)
     print(json.dumps({"vanilla": {
         k: ({m: ({kk: vv for kk, vv in r.items() if kk != "profile"}
                  if isinstance(r, dict) else r)

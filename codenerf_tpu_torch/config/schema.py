@@ -16,10 +16,9 @@ are equal.  Kept from the JAX package (and through it the reference's
 ``load_config`` reads YAML with PyYAML when it can be imported and with
 ``yaml_lite`` (standard library only) otherwise; both resolve scalars as
 ``yaml.safe_load`` does, so the two give the same ``Config``.
-``dump_config`` always writes with ``yaml_lite``.  Fields whose feature
-the port has not reached parse here and raise where they are used
-(``harness.py``, ``data/loader.py``): ``runtime.int8_serving``,
-``runtime.num_devices > 1`` and the Blender / LLFF dataset types.
+``dump_config`` always writes with ``yaml_lite``.  A field whose feature
+the port has not reached parses here and raises where it is used
+(``harness.py``): ``runtime.num_devices > 1``, until multi-GPU lands.
 """
 
 from __future__ import annotations
@@ -200,8 +199,10 @@ class RuntimeConfig:
     checkpoint directory or one ``.ckpt`` file), ``profile_dir`` (a
     ``torch.profiler`` Chrome trace of five steady-state steps),
     ``checkify`` (NaN / inf checks in the train step) and ``ray_chunks``.
-    ``num_devices`` > 1 and ``int8_serving`` (with its ``int8_encode``)
-    are parsed and refused by ``harness.py`` until their slices land.
+    ``int8_serving`` (with ``int8_encode``) adds the int8 serving render
+    to every validation (``harness.py``, ``models/quantized.py``);
+    ``num_devices`` > 1 is parsed and refused by ``harness.py`` until
+    multi-GPU lands.
     """
     load_checkpoint: str = ""
     # devices to train on; 0 = all visible devices (the port runs one)

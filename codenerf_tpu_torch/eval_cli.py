@@ -17,6 +17,10 @@ alone one batched group (``validate_batched``), neither the reference's
 refuse it, as JAX's do).  ``--num-objects`` sizes the code tables from the
 checkpoint when the val split's train directory holds none (TTO starts
 from the tables' mean).  ``--multihost`` raises until multi-GPU lands.
+With ``runtime.int8_serving=true`` (and ``runtime.int8_encode=true``)
+among the overrides, every mode also renders through the int8 serving
+path and reports its PSNR and SSIM (the category table's ``int8 PSNR``
+column).
 """
 
 import argparse
@@ -58,8 +62,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.multihost:
         raise NotImplementedError(
-            "--multihost: multi-GPU and multi-host evaluation is ROADMAP "
-            "Queue 1 item 3 (multi-GPU)")
+            "--multihost: multi-GPU and multi-host evaluation is the ROADMAP "
+            "Queue 1 item multi-GPU")
 
     from codenerf_tpu_torch.config import load_config
     from codenerf_tpu_torch.harness import (Harness, validate,

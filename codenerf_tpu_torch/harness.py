@@ -17,12 +17,16 @@ probe, the azimuth-flip rescue, the SE(3) refine and multi-view TTO, and
 renders each object from its recovered and its ground-truth camera;
 ``validate_category`` runs it over every distinct val object in groups
 of K (the eval CLI's ``--all-objects``), with the capacity clamp and the
-out-of-memory halving of ``eval/capacity.py``.
+out-of-memory halving of ``eval/capacity.py``.  Under
+``runtime.int8_serving`` each of them also renders the image through the
+int8 serving path (``models/quantized.py``, calibrated by
+``int8_render_params`` at the render pose; ``runtime.int8_encode``
+quantizes the encode stream too) and reports its PSNR and SSIM.
 
-The port runs on one device.  ``runtime.num_devices > 1`` (multi-GPU,
-ROADMAP Queue 1) and ``runtime.int8_serving`` (int8 serving, Queue 1)
-raise ``NotImplementedError``; ``validate_batched`` and
-``validate_category`` refuse a vanilla model, as JAX's assert.
+The port runs on one device: ``runtime.num_devices > 1`` raises
+``NotImplementedError`` until multi-GPU lands (ROADMAP Queue 1,
+multi-GPU).  ``validate_batched`` and ``validate_category`` refuse a
+vanilla model, as JAX's assert.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ import numpy as np
 import torch
 
 from codenerf_tpu_torch.config import Config, dump_config
-from codenerf_tpu_torch.core.geometry import pixel_directions, pose_spherical
+from codenerf_tpu_torch.core.geometry import (pixel_directions,
+                                              pose_spherical, ray_bundle)
 from codenerf_tpu_torch.core.metrics import mse2psnr, ssim
 from codenerf_tpu_torch.data import BatchIterator, LLFFDataset, build_dataset
 from codenerf_tpu_torch.device import resolve_device
@@ -53,6 +58,7 @@ from codenerf_tpu_torch.eval.tto import (BatchedTTOMetrics, TTOState,
                                          make_batched_tto_step,
                                          make_se3_refine_step, make_tto_step,
                                          se3_refined_poses, select_per_object)
+from codenerf_tpu_torch.models.quantized import quantize_for_serving
 from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train.optim import build_tto_optimizer
 from codenerf_tpu_torch.train.state import has_codes
@@ -66,12 +72,8 @@ def _refuse_unported(cfg: Config) -> None:
     if cfg.runtime.num_devices > 1:
         raise NotImplementedError(
             f"runtime.num_devices={cfg.runtime.num_devices}: the port trains "
-            "on one device; multi-GPU data parallelism is ROADMAP Queue 1 "
-            "item 3")
-    if cfg.runtime.int8_serving:
-        raise NotImplementedError(
-            "runtime.int8_serving: the int8 serving path is ROADMAP Queue 1 "
-            "item 2")
+            "on one device; multi-GPU data parallelism is the ROADMAP "
+            "Queue 1 item multi-GPU")
 
 
 def generator(device, *entropy) -> torch.Generator:
@@ -166,14 +168,16 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
     batch's first view: for CodeNeRF, TTO of codes and pose, then a
     full-image render from the recovered camera; for a vanilla model, the
     render at the view's ground-truth pose (JAX harness.py:120-145,
-    273-274).  Then the image's PSNR / SSIM.
+    273-274).  Then the image's PSNR / SSIM, and under
+    ``runtime.int8_serving`` the int8 image's, logged as "val-int8"
+    (JAX harness.py:276-283).
 
     ``params``: {"coarse", "fine"} models and, for CodeNeRF, {"codes"}
     tables on the harness's device.  The TTO stages follow the config:
     multi-start pose probes (``pose_restarts``), the azimuth-flip rescue
     (``pose_flip_steps``) and the SE(3) refine (``se3_refine_steps``).
     Draws come from generators seeded by ``experiment.randomseed``.
-    Returns {"loss", "psnr", "ssim"}.
+    Returns {"loss", "psnr", "ssim"} (and "psnr_int8", "ssim_int8").
     """
     cfg = harness.cfg
     dev = harness.device
@@ -194,8 +198,8 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
                                  device=dev)
     models = {"coarse": params["coarse"], "fine": params["fine"]}
     if not harness.has_codes:
-        rgb = render(models, dirs, pose_gt, None, None)
-        return _finish_validation(harness, target, rgb, logger, iteration)
+        return _validation_images(harness, render, models, target, pose_gt,
+                                  None, None, logger, iteration)
     codes = params["codes"]
 
     tto, tto_opt = init_tto_state(codes, opt_cfg, device=dev)
@@ -296,8 +300,52 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
         z_s = ref.variables["z_s"].detach()
         z_t = ref.variables["z_t"].detach()
 
-    rgb = render(models, dirs, cam_pose, z_s, z_t)
-    return _finish_validation(harness, target, rgb, logger, iteration)
+    return _validation_images(harness, render, models, target, cam_pose, z_s,
+                              z_t, logger, iteration)
+
+
+def _validation_images(harness, render, models, target, cam_pose, z_s, z_t,
+                       logger, iteration) -> dict:
+    """The full-precision image's scores and, under
+    ``runtime.int8_serving``, the int8 image's ("val-int8")."""
+    rgb = render(models, harness.directions, cam_pose, z_s, z_t)
+    out = _finish_validation(harness, target, rgb, logger, iteration)
+    if harness.cfg.runtime.int8_serving:
+        qmodels = int8_render_params(harness, models, cam_pose, z_s, z_t)
+        rgb_q = render(qmodels, harness.directions, cam_pose, z_s, z_t)
+        q = _finish_validation(harness, target, rgb_q, logger, iteration,
+                               tag="val-int8")
+        out.update({"psnr_int8": q["psnr"], "ssim_int8": q["ssim"]})
+    return out
+
+
+def int8_render_params(harness: Harness, models: dict, cam_pose, z_s, z_t,
+                       n_rays: int = 16384) -> dict:
+    """``models`` calibrated and quantized for int8 serving
+    (``models/quantized.py::quantize_for_serving``) on rays cast from the
+    render pose itself, the activation ranges the int8 render will see
+    (JAX harness.py:287-312): ``n_rays`` pixels (every pixel of a 128x128
+    view) drawn by ``np.random.default_rng(0)`` as JAX draws them, the
+    codes [1, C] broadcast to every ray (None for a vanilla model), and
+    ``runtime.int8_encode`` for the encode stream."""
+    dirs = harness.directions.reshape(-1, 3)
+    n = min(n_rays, dirs.shape[0])
+    idx = np.random.default_rng(0).choice(dirs.shape[0], n, replace=False)
+    sel = torch.from_numpy(idx).to(dirs.device)
+    ro, rd = ray_bundle(dirs[sel][None], cam_pose[None])
+    zs = zt = None
+    if z_s is not None:
+        zs = z_s.reshape(1, -1).expand(n, -1)
+        zt = z_t.reshape(1, -1).expand(n, -1)
+    return quantize_for_serving(
+        models, harness.settings, ro.reshape(n, 3), rd.reshape(n, 3), zs, zt,
+        encode_stream=harness.cfg.runtime.int8_encode)
+
+
+def _ssim_of(harness, rgb, target) -> float:
+    rgb_img = torch.clamp(rgb.reshape(harness.height, harness.width, 3),
+                          0.0, 1.0)
+    return float(ssim(rgb_img, torch.clamp(target[..., :3], 0.0, 1.0)))
 
 
 def _finish_validation(harness, target, rgb, logger, iteration,
@@ -399,12 +447,14 @@ def validate_batched(harness: Harness, params: dict, logger: MetricLogger,
 
     ``tto_views > 1`` is multi-view TTO: V val views of each object share
     its codes, each view its own camera; renders and PSNR are on view 0,
-    the pose error the mean over views.  Draws come from generators
-    seeded by ``experiment.randomseed`` (the main stream, one per probe
-    r, one for the flip candidate, one shared by the two basins'
-    comparison step).  Returns the aggregate metrics with the per-object
-    rows and objects per minute; with ``return_recovered`` also the
-    recovered codes, cameras and spherical parameters (view 0).
+    the pose error the mean over views.  Under ``runtime.int8_serving``
+    each row also holds the int8 image's ``psnr_int8`` and ``ssim_int8``
+    at the recovered camera (JAX harness.py:649-661).  Draws come from
+    generators seeded by ``experiment.randomseed`` (the main stream, one
+    per probe r, one for the flip candidate, one shared by the two
+    basins' comparison step).  Returns the aggregate metrics with the
+    per-object rows and objects per minute; with ``return_recovered``
+    also the recovered codes, cameras and spherical parameters (view 0).
     """
     _require_codes(harness, "batched TTO")
     cfg = harness.cfg
@@ -574,18 +624,24 @@ def validate_batched(harness: Harness, params: dict, logger: MetricLogger,
         zs, zt = z_s_all[kk:kk + 1], z_t_all[kk:kk + 1]
         target = targets_r[kk]
         rgb = render(models, dirs, final_poses[kk], zs, zt)
-        rgb_img = torch.clamp(rgb.reshape(harness.height, harness.width, 3),
-                              0.0, 1.0)
         row = {"psnr": _psnr_of(rgb, target),
-               "ssim": float(ssim(rgb_img,
-                                  torch.clamp(target[..., :3], 0.0, 1.0))),
+               "ssim": _ssim_of(harness, rgb, target),
                "pose_error": float(pose_err[kk])}
         rgb_gt = render(models, dirs, poses_gt_r[kk], zs, zt)
         row["psnr_gt_pose"] = _psnr_of(rgb_gt, target)
         row["delta_psnr_gt_pose"] = row["psnr"] - row["psnr_gt_pose"]
+        if cfg.runtime.int8_serving:
+            qmodels = int8_render_params(harness, models, final_poses[kk],
+                                         zs, zt)
+            rgb_q = render(qmodels, dirs, final_poses[kk], zs, zt)
+            row["psnr_int8"] = _psnr_of(rgb_q, target)
+            row["ssim_int8"] = _ssim_of(harness, rgb_q, target)
         per_object.append(row)
         if is_main_process():
-            logger.log_image(f"val/rgb_image_obj{kk}", iteration, rgb_img)
+            logger.log_image(f"val/rgb_image_obj{kk}", iteration,
+                             torch.clamp(rgb.reshape(harness.height,
+                                                     harness.width, 3),
+                                         0.0, 1.0))
     out = {
         "num_objects": K,
         "psnr_mean": float(np.mean([o["psnr"] for o in per_object])),
@@ -631,9 +687,11 @@ def validate_category(harness: Harness, params: dict, logger: MetricLogger,
     pads are left out of the report.  A group that runs out of device
     memory (``capacity.is_oom_error``) is redone at half the K, with the
     rows already done kept; every other error is raised.  Prints the
-    per-object table and the category means; returns them, with the K
-    the groups ran at, the TTO seconds of all groups and objects per
-    minute.
+    per-object table and the category means (with the int8 PSNR column
+    and ``psnr_int8_mean`` / ``ssim_int8_mean`` under
+    ``runtime.int8_serving``, JAX harness.py:761-787); returns them, with
+    the K the groups ran at, the TTO seconds of all groups and objects
+    per minute.
     """
     _require_codes(harness, "category evaluation")
     cfg = harness.cfg
@@ -690,19 +748,28 @@ def validate_category(harness: Harness, params: dict, logger: MetricLogger,
             [r["delta_psnr_gt_pose"] for r in rows])),
         "per_object": rows,
     }
+    int8 = bool(rows) and all("psnr_int8" in r for r in rows)
+    if int8:
+        summary["psnr_int8_mean"] = float(np.mean([r["psnr_int8"]
+                                                   for r in rows]))
+        summary["ssim_int8_mean"] = float(np.mean([r["ssim_int8"]
+                                                   for r in rows]))
     if is_main_process():
         print(f"[VAL   ] category evaluation over {len(rows)} objects "
               f"(groups of {K}" + (f", {V} views/object" if V > 1 else "")
               + "):")
         # dPSNR(GT pose): the recovered-pose render less the GT-pose render
         # of the same recovered codes
-        print("  object |   PSNR |  SSIM | pose err | dPSNR(GT pose)")
+        print("  object |   PSNR |  SSIM | pose err | dPSNR(GT pose)"
+              + (" | int8 PSNR" if int8 else ""))
         for i, r in enumerate(rows):
             print(f"  {i:6d} | {r['psnr']:6.2f} | {r['ssim']:.3f} "
                   f"| {r['pose_error']:8.3f} "
-                  f"| {r['delta_psnr_gt_pose']:+14.2f}")
+                  f"| {r['delta_psnr_gt_pose']:+14.2f}"
+                  + (f" | {r['psnr_int8']:6.2f}" if int8 else ""))
         print(f"  mean   | {summary['psnr_mean']:6.2f} "
               f"| {summary['ssim_mean']:.3f} "
               f"| {summary['pose_error_mean']:8.3f} "
-              f"| {summary['delta_psnr_gt_pose_mean']:+14.2f}")
+              f"| {summary['delta_psnr_gt_pose_mean']:+14.2f}"
+              + (f" | {summary['psnr_int8_mean']:6.2f}" if int8 else ""))
     return summary

@@ -28,6 +28,12 @@ with view directions, so ``use_pallas`` and ``pallas_hybrid`` select
 nothing for it.  That is JAX's semantics, decided from the config before
 anything runs, not a fallback after a failure.
 
+Int8 serving modules (``models/quantized.py``: ``QuantizedCodeNeRF``,
+``QuantizedFlexibleNeRF``) take their int8 forward before the trunk's
+path is consulted, as JAX's ``"quant" in params`` check comes first
+(pipeline.py:220-228); the int8 graph always splits fc_out's sigma from
+its features, so ``split_fc_out`` does not apply to it.
+
 NDC rays (``settings.ndc``, set by ``Harness.from_config`` for LLFF
 scenes): both renders sample and composite along ``core.geometry.
 ndc_rays`` of the batch and encode the view directions from the
@@ -52,6 +58,10 @@ from codenerf_tpu_torch.core.encoding import positional_encoding
 from codenerf_tpu_torch.core.geometry import ndc_rays
 from codenerf_tpu_torch.models.mlp import (CodeNeRFConfig,
                                            FlexibleNeRFConfig)
+from codenerf_tpu_torch.models.quantized import (QuantizedCodeNeRF,
+                                                 QuantizedFlexibleNeRF,
+                                                 apply_codenerf_rays_q,
+                                                 apply_flexible_rays_q)
 from codenerf_tpu_torch.models.ray_structured import (apply_codenerf_rays,
                                                       apply_flexible_rays)
 from codenerf_tpu_torch.ops.fused import recompute_codenerf, train_codenerf
@@ -184,27 +194,48 @@ def remat_active(settings: RenderSettings) -> bool:
     return settings.remat and trunk_path(settings) == "rays"
 
 
+def encode_dirs(settings: RenderSettings, rd):
+    """The per-ray view-direction encoding [R, dim_dir] of rd's unit
+    vectors, or None without view directions."""
+    if not settings.use_viewdirs:
+        return None
+    viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    return positional_encoding(viewdirs, settings.num_encoding_fn_dir,
+                               settings.include_input_dir,
+                               settings.log_sampling_dir)
+
+
+def encode_inputs(settings: RenderSettings, pts, rd):
+    """(xyz_enc [R, S, dim_xyz], dir_enc [R, dim_dir] or None) of samples
+    pts [R, S, 3] on rays rd [R, 3] (JAX ``encode_inputs``)."""
+    return (positional_encoding(pts, settings.num_encoding_fn_xyz,
+                                settings.include_input_xyz,
+                                settings.log_sampling_xyz),
+            encode_dirs(settings, rd))
+
+
 def _forward(model, model_cfg, settings: RenderSettings, pts, rd, z_s, z_t):
     """encode -> the model over [R, S] samples on the trunk's path, the
     ray-structured products under ``model_cfg`` (the settings' config of
-    this model).  A FlexibleNeRF takes no codes (``z_s``, ``z_t`` None)
-    and, without view directions, no direction encoding.  Under
-    ``torch.no_grad`` the paths' Functions run their forwards only."""
-    dir_enc = None
-    if settings.use_viewdirs:
-        viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-        dir_enc = positional_encoding(viewdirs, settings.num_encoding_fn_dir,
-                                      settings.include_input_dir,
-                                      settings.log_sampling_dir)
+    this model); an int8 serving module takes its int8 forward first.  A
+    FlexibleNeRF takes no codes (``z_s``, ``z_t`` None) and, without view
+    directions, no direction encoding.  Under ``torch.no_grad`` the
+    paths' Functions run their forwards only."""
+    if isinstance(model, QuantizedCodeNeRF):
+        xyz_enc, dir_enc = encode_inputs(settings, pts, rd)
+        return apply_codenerf_rays_q(model, xyz_enc, dir_enc, z_s, z_t,
+                                     model_cfg)
+    if isinstance(model, QuantizedFlexibleNeRF):
+        xyz_enc, dir_enc = encode_inputs(settings, pts, rd)
+        return apply_flexible_rays_q(model, xyz_enc, dir_enc, model_cfg)
     path = trunk_path(settings, model_cfg)
     if path == "rays":
-        xyz_enc = positional_encoding(pts, settings.num_encoding_fn_xyz,
-                                      settings.include_input_xyz,
-                                      settings.log_sampling_xyz)
+        xyz_enc, dir_enc = encode_inputs(settings, pts, rd)
         if isinstance(model_cfg, FlexibleNeRFConfig):
             return apply_flexible_rays(model, xyz_enc, dir_enc, model_cfg)
         return apply_codenerf_rays(model, xyz_enc, dir_enc, z_s, z_t,
                                    model_cfg)
+    dir_enc = encode_dirs(settings, rd)
     kw = dict(num_freq_xyz=settings.num_encoding_fn_xyz,
               log_sampling_xyz=settings.log_sampling_xyz)
     if path == "fused_recompute":
@@ -220,7 +251,8 @@ def render_rays(models: dict, settings: RenderSettings, ro, rd, z_s, z_t,
                 ) -> Tuple[RenderOutputs, RenderOutputs]:
     """Coarse -> importance -> fine render of a ray batch, grad-free.
 
-    models: {"coarse", "fine"} (``CodeNeRF`` or ``FlexibleNeRF``); ro,
+    models: {"coarse", "fine"} (``CodeNeRF`` or ``FlexibleNeRF``, or
+    their int8 serving modules from ``quantize_for_serving``); ro,
     rd: [R, 3] world-space rays; z_s, z_t: [R, C] per-ray codes (None for
     FlexibleNeRF).  Returns (coarse, fine) RenderOutputs.
     """

@@ -13,7 +13,9 @@ The flags are ``train.py``'s, with ``--device`` (default ``cuda``; it
 raises without a card unless ``--device cpu`` is given) in place of
 ``--platform``.  ``-g`` caps the devices as in ``train.py``; the port
 trains on one, so a cap above 1 raises until multi-GPU lands.
-``--distributed`` is a no-op, as in ``train.py``.  Checkpoints are
+``--distributed`` is a no-op, as in ``train.py``.  The overrides
+``runtime.int8_serving=true`` and ``runtime.int8_encode=true`` add the
+int8 serving render to each validation.  Checkpoints are
 ``<logdir>/<id>/checkpoints/<step>.ckpt`` in the reference's layout.
 """
 

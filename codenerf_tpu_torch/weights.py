@@ -7,7 +7,8 @@ them, and ``{"shape", "texture"}`` code tables);
 nothing here imports JAX.  The outputs use the reference state-dict
 names, as ``codenerf_tpu/train/torch_import.py`` writes them.  TTO
 variables ({"z_s", "z_t", "theta", "phi", "rho"} or {"z_s", "z_t",
-"xi"}) carry over as leaf tensors.
+"xi"}) carry over as leaf tensors, and a JAX ``quantize_for_serving``
+result becomes the port's int8 serving modules.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 from codenerf_tpu_torch.device import resolve_device
 from codenerf_tpu_torch.models.mlp import LAYER_NAMES, FlexibleNeRF
+from codenerf_tpu_torch.models.quantized import (QuantizedCodeNeRF,
+                                                 QuantizedFlexibleNeRF)
 
 
 def _linear(out: dict, name: str, layer_np: dict) -> None:
@@ -91,3 +94,31 @@ def tto_variables_from_jax(variables_np: dict, device="cuda") -> dict:
     return {k: torch.tensor(np.asarray(v, np.float32), device=dev,
                             requires_grad=True)
             for k, v in variables_np.items()}
+
+
+def quantized_from_jax(qparams_np: dict, models: dict) -> dict:
+    """A JAX ``quantize_for_serving`` result (numpy views of ``{"coarse",
+    "fine"}``, each with its ``"quant"`` subtree: ``s_act`` and ``{"wq",
+    "scale"}`` per product, FlexibleNeRF's ``layers_xyz`` a list) -> the
+    port's ``QuantizedCodeNeRF`` / ``QuantizedFlexibleNeRF`` around
+    ``models``' float models (the port's, with the same weights), on
+    their device, holding JAX's int8 buffers unchanged."""
+    out = {}
+    for key in ("coarse", "fine"):
+        model = models[key]
+        dev = next(model.parameters()).device
+        quant = qparams_np[key]["quant"]
+
+        def t(a, dtype):
+            return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+        def pair(layer):
+            return t(layer["wq"], np.int8), t(layer["scale"], np.float32)
+        s_act = {k: t(v, np.float32) for k, v in quant["s_act"].items()}
+        layers = {k: ([pair(x) for x in v] if isinstance(v, (list, tuple))
+                      else pair(v))
+                  for k, v in quant.items() if k != "s_act"}
+        cls = (QuantizedFlexibleNeRF if isinstance(model, FlexibleNeRF)
+               else QuantizedCodeNeRF)
+        out[key] = cls(model, s_act, layers)
+    return out

@@ -63,6 +63,12 @@ assert {"codenerf_tpu_torch.config.schema",
         "codenerf_tpu_torch.eval.capacity"} <= set(names)
 assert {"codenerf_tpu_torch.data.blender",
         "codenerf_tpu_torch.data.llff"} <= set(names)
+# int8 serving: the module imports, and its primitive runs, without jax
+assert "codenerf_tpu_torch.models.quantized" in names
+import torch
+from codenerf_tpu_torch.models.quantized import quantize_tensor
+assert quantize_tensor(torch.tensor([0.5, 1.5, 300.0]), 1.0).tolist() == [
+    0, 2, 127]
 from codenerf_tpu_torch.config import load_config
 assert load_config("configs/srn-cars-code.yml") == cfg
 # the vanilla configs' settings: FlexibleNeRF, and NDC rays importable
