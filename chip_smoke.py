@@ -2,8 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (``codenerf_tpu_torch``).
 
 Drives the port's serving render (full precision and int8), train step,
-test-time optimization (TTO), train entry point and eval entry point on
-one NVIDIA card at the flagship width of ``configs/srn-cars-code.yml``
+test-time optimization (TTO), train entry point, data parallelism over
+rays and eval entry point on one NVIDIA card at the flagship width of ``configs/srn-cars-code.yml``
 (values from ``SRN_CARS_CODE``; the cli and eval phases read the file
 itself), and
 vanilla NeRF at the widths of ``configs/lego.yml``, ``fern.yml`` and
@@ -110,6 +110,34 @@ with the committed trained weights:
                to step 20 (exit 0, no yaml / imageio import, its
                ``config.yml`` read back by ``yaml_lite``); ms per step from
                the logged ``time_taken``, validation ms, PSNR and SSIM.
+  8b. dist   — data parallelism over rays (``parallel/``) at the flagship
+               width, on the cli phase's tree: (a) a world of one NCCL
+               rank on ``cuda:0`` in this process: 6 fused train steps of
+               4 x 4096 rays through the distributed code path,
+               bit-identical to the same steps without a world (step 1's
+               gradients, every parameter and moment after), ms beside the
+               step without a world, the bytes all-reduced per step, and a
+               ``torch.profiler`` step that must record NCCL's all_reduce;
+               (b) two gloo ranks sharing ``cuda:0``
+               (``parallel.launch.spawn``; 8,192 rays a rank): 3 fused
+               train steps from the train phase's seeded student with the
+               one-process draws (step 1's summed gradients at relRMS
+               <= 1e-2 per leaf against the one-process step, parameters
+               bit-identical across ranks, a falling fine loss), one
+               batched fused TTO step of 4 x 4096 rays (loss within 1e-3,
+               z_s / z_t / theta / phi / rho gradients at 1e-2), the
+               128x128 image through K1 and the int8 image (40 dB against
+               the one-process images; bit-identity printed; the int8
+               buffers each rank calibrates bit-identical), and 10 steps
+               of ``run_training`` of the flagship YAML with K1 + K2 and a
+               validation at step 5 (rank 0 alone writes the checkpoint,
+               parameters bit-identical across ranks, K1 and K2 launched on
+               each rank); every number's ms beside the one-process one,
+               on a line that says the two ranks share one card; (c) the
+               same over NCCL with one card per rank where the machine has
+               two, and one more train step per rank whose profile must
+               hold NCCL's all-reduce kernel, else one line saying why it
+               did not run.
   9. eval    — the eval entry point: first each trunk path's activation
                factor for ``eval/capacity.py`` (the slope of
                ``max_memory_allocated`` over one batched TTO step at K = 1
@@ -166,7 +194,9 @@ with the committed trained weights:
                ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
-raises and exits nonzero without the last line.  Imports only torch, numpy,
+raises and exits nonzero without the last line.  ``python3 chip_smoke.py
+--dist-only`` runs phases 1, 2 and 8b alone (on the cli phase's tree),
+for a machine with two or more cards, where (c) runs.  Imports only torch, numpy,
 the standard library and ``codenerf_tpu_torch``.
 """
 
@@ -221,6 +251,7 @@ from codenerf_tpu_torch.train import (checkpoint, init_train_state,
 from codenerf_tpu_torch.train import loop
 from codenerf_tpu_torch.eval import capacity
 from codenerf_tpu_torch.harness import Harness, int8_render_params
+from codenerf_tpu_torch.parallel import close_world, init_world, launch
 from codenerf_tpu_torch.models import quantized
 from codenerf_tpu_torch.utils.logging import MetricLogger
 
@@ -1699,6 +1730,14 @@ def jsonl(path: Path) -> list:
     return [json.loads(ln) for ln in path.read_text().splitlines()]
 
 
+def cli_tables() -> CodeTables:
+    """The codes of the cli phase's SRN tree's 10 objects."""
+    emb = SRN_CARS_CODE["models"]["embedding"]
+    return CodeTables(10, emb["shape_code_size"], emb["texture_code_size"],
+                      "cuda",
+                      torch.Generator(device="cpu").manual_seed(SEED + 11))
+
+
 def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
     """The train entry point on the card (phase 8): an SRN tree made on
     the card, ``run_training`` of the flagship YAML at its full widths for
@@ -1708,10 +1747,7 @@ def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
     it to step 20.  ``fused_ms`` is the train phase's fused step, printed
     beside the CLI's.  ``then(root, work)``, if given, runs on the SRN
     tree before it is removed; its result is under "then"."""
-    emb = SRN_CARS_CODE["models"]["embedding"]
-    tables = CodeTables(10, emb["shape_code_size"],
-                        emb["texture_code_size"], "cuda",
-                        torch.Generator(device="cpu").manual_seed(SEED + 11))
+    tables = cli_tables()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     try:
         t0 = time.perf_counter()
@@ -1940,7 +1976,7 @@ def cpu_copy(models: dict) -> dict:
 
 def int8_harness(cfg, settings, dirs, encode_stream):
     """What ``harness.int8_render_params`` reads of a ``Harness``: the
-    direction grid, the settings, and the config with int8 serving on."""
+    direction grid, the settings and the config with int8 serving on."""
     rt = dataclasses.replace(cfg.runtime, int8_serving=True,
                              int8_encode=encode_stream)
     return types.SimpleNamespace(directions=dirs, settings=settings,
@@ -2875,6 +2911,447 @@ def vanilla_phase(card) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# data parallelism over rays (parallel/): two ranks per world, each
+# spawned by parallel.launch.spawn; three gated train steps, one TTO step,
+# the images and 10 steps of run_training per world
+DIST_RANKS = 2
+DIST_STEPS = 3
+DIST_WORLD1_STEPS = 6
+DIST_CLI_STEPS = 10
+DIST_TIMEOUT = 600
+# TTO steps and images timed after the gated one (median)
+DIST_TIMED = 5
+NO_NCCL_KERNEL = "none: NCCL runs no kernel for a one-rank in-place sum"
+
+
+def dist_inputs(size, dirs, teacher) -> dict:
+    """What the dist phase's ranks and its one-process references start
+    from, on the CPU: 4 train targets and 4 TTO targets the seeded
+    teacher renders at the train and TTO phases' poses from codes of its
+    own tables, the 2458-object table TTO starts from, the teacher and
+    the image's codes and pose."""
+    cfg, k1_settings = mode_config(TRAIN_MODES["fused"][0])
+    emb = cfg.models.embedding
+    B, K = cfg.dataset.train_batch_size, TTO_OBJECTS
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    tables = CodeTables(8, emb.shape_code_size, emb.texture_code_size,
+                        "cuda", gen)
+    tto_tables = CodeTables(SRN_CARS_TRAIN_OBJECTS, emb.shape_code_size,
+                            emb.texture_code_size, "cuda", gen)
+    render = make_image_renderer(k1_settings, size, size,
+                                 cfg.nerf.validation.chunksize, "cuda")
+    poses = torch.stack([pose_spherical(0.5 + 0.25 * i, 0.9 * i, 1.3,
+                                        device="cuda") for i in range(B)])
+    phis = torch.linspace(-2.0, 2.0, K, device="cuda")
+    tto_poses = pose_spherical(torch.full_like(phis, 1.2), phis, 1.3)
+    with torch.no_grad():
+        pixels = torch.stack([render(teacher, dirs, poses[i], *lookup_codes(
+            tables, torch.tensor([i], device="cuda"))).reshape(size, size, 3)
+            for i in range(B)])
+        targets = torch.stack([render(teacher, dirs, tto_poses[i],
+                                      *lookup_codes(tto_tables, torch.tensor(
+                                          [i], device="cuda"))).reshape(
+                                              size, size, 3)
+                               for i in range(K)])
+        z_s, z_t = lookup_codes(tables, torch.tensor([3], device="cuda"))
+
+    def cpu(x):
+        return x.detach().cpu()
+
+    return {"dirs": cpu(dirs), "poses": cpu(poses), "pixels": cpu(pixels),
+            "ids": torch.arange(B), "tto_targets": cpu(targets),
+            "tto_poses": cpu(tto_poses),
+            "tto_tables": {k: cpu(v) for k, v in
+                           tto_tables.state_dict().items()},
+            "teacher": {k: {n: cpu(v) for n, v in m.state_dict().items()}
+                        for k, m in teacher.items()},
+            "z": (cpu(z_s), cpu(z_t)),
+            "pose": cpu(pose_spherical(1.2, 0.6, 1.3)), "size": size}
+
+
+def _on(device, inputs, *keys):
+    return [inputs[k].to(device) for k in keys]
+
+
+def dist_train(world, inputs, steps) -> dict:
+    """``steps`` fused train steps of 4 x 4096 rays from the seeded
+    student of the train phase, in ``world`` (None: one process): the
+    first step's gradients, each step's fine loss and ms, the launches
+    and the parameters at the end (on the CPU)."""
+    dev = torch.device("cuda") if world is None else world.device
+    cfg, settings = mode_config(TRAIN_MODES["fused"][0])
+    st = init_train_state(cfg, settings, 8, seed=SEED + 2, device=dev)
+    step = make_train_step(settings, st, cfg.nerf.ray_sampler.num_random_rays,
+                           cfg.experiment.regularizer_lambda, True,
+                           world=world)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    args = _on(dev, inputs, "dirs", "poses", "pixels", "ids")
+    out = {"fine_loss": [], "ms": []}
+    before = launch_counts()
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = step(*args, gen)
+        torch.cuda.synchronize(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["fine_loss"].append(float(m.loss_fine))
+        if i == 0:
+            out["grads"] = {k: v.cpu() for k, v in grads_of(st).items()}
+            out["metrics"] = [float(v) for v in m]
+    out["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
+    out["params"] = {k: v.cpu() for k, v in state_tensors(st).items()}
+    out["bytes_all_reduced"] = 4 * (sum(p.numel() for m in
+                                        st.modules().values()
+                                        for p in m.parameters()) + 2)
+    return out
+
+
+def dist_tto(world, inputs) -> dict:
+    """One batched fused TTO step of 4 x 4096 rays from the mean codes of
+    the 2458-object table, the teacher frozen, in ``world``: the loss
+    [K] and the variables' gradients (on the CPU), the ms."""
+    dev = torch.device("cuda") if world is None else world.device
+    cfg, settings = mode_config(TRAIN_MODES["fused"][0])
+    emb = cfg.models.embedding
+    tables = CodeTables(SRN_CARS_TRAIN_OBJECTS, emb.shape_code_size,
+                        emb.texture_code_size, dev)
+    tables.load_state_dict(inputs["tto_tables"])
+    models = dist_models(settings, inputs, dev)
+    st, opt = init_batched_tto_state(tables, cfg.optimizer, TTO_OBJECTS,
+                                     device=dev)
+    step = make_batched_tto_step(settings, opt,
+                                 cfg.nerf.ray_sampler.num_random_rays,
+                                 cfg.experiment.regularizer_lambda,
+                                 cfg.nerf.point_sampler.perturb, dev,
+                                 world=world)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    args = (models, *_on(dev, inputs, "dirs", "tto_targets", "tto_poses"),
+            gen)
+    st, m = step(st, *args)
+    out = {"loss": m.loss.cpu(),
+           "grads": {k: st.variables[k].grad.cpu() for k in TTO_KEYS}}
+    torch.cuda.synchronize(dev)
+    _, ms, _ = timed_steps(step, st, args, DIST_TIMED)
+    out["ms"] = statistics.median(ms)
+    return out
+
+
+def dist_models(settings, inputs, dev) -> dict:
+    models = {k: CodeNeRF(getattr(settings, f"{k}_cfg"), dev)
+              for k in ("coarse", "fine")}
+    for k, m in models.items():
+        m.load_state_dict(inputs["teacher"][k])
+    return models
+
+
+def dist_images(world, inputs) -> dict:
+    """The 128x128 image through K1 and the int8 image (calibrated by
+    ``int8_render_params`` at the render pose, on every rank of a world),
+    in ``world``, their ms, and the int8 modules' buffers."""
+    dev = torch.device("cuda") if world is None else world.device
+    cfg, k1_settings = mode_config({"use_pallas": True})
+    _, settings = mode_config({})
+    size = inputs["size"]
+    models = dist_models(settings, inputs, dev)
+    dirs, pose = _on(dev, inputs, "dirs", "pose")
+    z_s, z_t = (z.to(dev) for z in inputs["z"])
+    harness = types.SimpleNamespace(
+        directions=dirs, settings=settings,
+        cfg=dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, int8_serving=True)))
+    out = {}
+    for name, s in (("k1", k1_settings), ("int8", settings)):
+        render = make_image_renderer(s, size, size,
+                                     cfg.nerf.validation.chunksize, dev,
+                                     world=world)
+        mods = (models if name == "k1" else
+                int8_render_params(harness, models, pose, z_s, z_t))
+        out[name] = render(mods, dirs, pose, z_s, z_t).cpu()  # warm-up
+        out[f"{name}_ms"] = statistics.median(timed_renders(
+            render, (mods, dirs, pose, z_s, z_t), DIST_TIMED))
+    out["int8_buffers"] = [b.cpu() for m in mods.values()
+                           for b in m.buffers()]
+    return out
+
+
+def dist_training(world, root, work) -> dict:
+    """``run_training`` of the flagship YAML on the cli phase's tree for
+    ``DIST_CLI_STEPS`` steps with K1 + K2 in ``world``, validating at
+    step 5: this rank's launches, checkpoint writes and parameters."""
+    overrides = [f"dataset.basedir={root}", f"experiment.logdir={work}",
+                 "experiment.id=dist", f"experiment.save_every="
+                 f"{DIST_CLI_STEPS}", "experiment.validate_every=5",
+                 "experiment.val_iterations=10", "experiment.print_every=5",
+                 "runtime.use_pallas=True", "runtime.pallas_backward=True"]
+    cfg = load_config(ROOT / CLI_YAML, overrides)
+    saves, states = [], []
+    save, init = checkpoint.save_checkpoint, loop.init_train_state
+
+    def counted_save(*args, **kwargs):
+        saves.append(args[1].step)
+        return save(*args, **kwargs)
+
+    def kept_init(*args, **kwargs):
+        states.append(init(*args, **kwargs))
+        return states[-1]
+
+    checkpoint.save_checkpoint, loop.init_train_state = counted_save, kept_init
+    before = launch_counts()
+    try:
+        loop.run_training(cfg, max_steps=DIST_CLI_STEPS, device=world.device)
+    finally:
+        checkpoint.save_checkpoint, loop.init_train_state = save, init
+    return {"launches": {k: v - before[k] for k, v in launch_counts().items()},
+            "saves": saves,
+            "params": {k: v.cpu()
+                       for k, v in state_tensors(states[0]).items()}}
+
+
+def dist_rank(world, inputs, root, work) -> dict:
+    """One rank of the dist phase's worlds (``parallel.launch``); under
+    NCCL also one more train step's profile."""
+    out = {"train": dist_train(world, inputs, DIST_STEPS),
+           "tto": dist_tto(world, inputs),
+           "images": dist_images(world, inputs),
+           "cli": dist_training(world, root, work)}
+    if torch.distributed.get_backend() == "nccl":
+        out["profile"] = nccl_profile(world, inputs)
+    return out
+
+
+def nccl_all_reduce_kernels(prof) -> dict:
+    """The device records of a ``nccl_profile`` that are NCCL's
+    all-reduce kernels (``ncclDevKernel_AllReduce_...``), with their
+    ms."""
+    return {k: v for k, v in prof["card_ms"].items()
+            if "allreduce" in k.lower().replace("_", "")}
+
+
+@contextlib.contextmanager
+def world_of_one(backend):
+    """A world of one rank on ``cuda:0`` in this process, as torchrun's
+    environment would describe it; left, and the environment restored,
+    after."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(launch.free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield init_world(1, backend=backend, device="cuda:0")
+    finally:
+        close_world()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def nccl_profile(world, inputs) -> dict:
+    """One more train step in ``world`` under ``torch.profiler``: the
+    records whose names hold "nccl", on the host and on the card."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dist_train(world, inputs, 1)
+        torch.cuda.synchronize()
+    host, card = set(), {}
+    for e in prof.key_averages():
+        if "nccl" not in e.key.lower():
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            card[e.key] = getattr(e, "device_time_total", 0.0) / 1e3
+        else:
+            host.add(e.key)
+    return {"host": sorted(host), "card_ms": card}
+
+
+def check_world(label, results, ref, card, shared) -> dict:
+    """Gate one world's ranks against the one-process references ``ref``
+    and print their numbers."""
+    ranks = len(results)
+    note = ("two ranks share one card: the ms are the collectives' cost, "
+            "not scaling" if shared else "one card per rank")
+    out = {"note": note}
+    # train: step 1's summed gradients, bit-identical ranks, falling loss
+    rel = {r: grad_rel_rms(res["train"]["grads"], ref["train"]["grads"])
+           for r, res in enumerate(results)}
+    worst = max(((r, k, v) for r, d in rel.items() for k, v in d.items()),
+                key=lambda x: x[2])
+    differ = [k for r in range(1, ranks) for k in bit_identical(
+        results[0]["train"]["params"], results[r]["train"]["params"])]
+    loss = results[0]["train"]["fine_loss"]
+    print(f"dist {label} train: {ranks} ranks x "
+          f"{4 * 4096 // ranks} rays a step, step 1 gradient relRMS against "
+          f"the one-process step: worst rank {worst[0]} {worst[1]} "
+          f"{worst[2]:.4g} ({len(rel[0])} leaves); parameters after "
+          f"{DIST_STEPS} steps bit-identical across ranks: {not differ}; "
+          f"fine loss {[round(x, 6) for x in loss]}; ms per step "
+          f"{[[round(x, 3) for x in res['train']['ms']] for res in results]} "
+          f"(step 1 with each process's warm-up; one process: median of "
+          f"steps 2-{DIST_WORLD1_STEPS} "
+          f"{statistics.median(ref['train']['ms'][1:]):.6g} ms); launches "
+          f"per rank "
+          f"{[res['train']['launches'] for res in results]}; {note}; on "
+          f"{card}", flush=True)
+    if not worst[2] <= REL_RMS_GATE or differ or not loss[-1] < loss[0]:
+        raise RuntimeError(f"dist {label} train: relRMS {worst}, differ "
+                           f"{differ}, fine loss {loss}")
+    # TTO: the loss within 1e-3, the variables' gradients at 1e-2
+    tto_rel = {(r, k): float(torch.linalg.norm(res["tto"]["grads"][k]
+                                               - ref["tto"]["grads"][k])
+                             / torch.linalg.norm(ref["tto"]["grads"][k]))
+               for r, res in enumerate(results) for k in TTO_KEYS}
+    tto_loss = max(float((res["tto"]["loss"] - ref["tto"]["loss"]).abs().max()
+                         / ref["tto"]["loss"].abs().max()) for res in results)
+    w = max(tto_rel, key=tto_rel.get)
+    print(f"dist {label} tto: batched K = {TTO_OBJECTS} x 4096 rays, "
+          f"{ranks} ranks: loss relative difference {tto_loss:.4g} (gate "
+          f"1e-3), worst gradient relRMS {w} {tto_rel[w]:.4g} (gate "
+          f"{REL_RMS_GATE}); ms per step (median of {DIST_TIMED} after "
+          f"it) {[round(r['tto']['ms'], 3) for r in results]} (one process "
+          f"{ref['tto']['ms']:.6g}); {note}; on {card}",
+          flush=True)
+    if not (tto_loss <= 1e-3 and tto_rel[w] <= REL_RMS_GATE):
+        raise RuntimeError(f"dist {label} tto: loss {tto_loss}, {w} "
+                           f"{tto_rel[w]}")
+    # images: >= 40 dB against the one-process images
+    psnr = {}
+    for name in ("k1", "int8"):
+        for r, res in enumerate(results):
+            psnr[(name, r)] = float(mse2psnr(torch.mean(
+                (res["images"][name] - ref["images"][name]) ** 2)))
+    same = {name: all(torch.equal(res["images"][name], ref["images"][name])
+                      for res in results) for name in ("k1", "int8")}
+    # every rank calibrates its int8 buffers itself: they must agree
+    first = results[0]["images"]["int8_buffers"]
+    buffers_same = all(
+        len(bufs) == len(first)
+        and all(torch.equal(a, b) for a, b in zip(bufs, first))
+        for bufs in (res["images"]["int8_buffers"] for res in results[1:]))
+    print(f"dist {label} images: 128x128 through K1 and int8 on {ranks} "
+          f"ranks: PSNR against the one-process image K1 "
+          f"{min(v for (n, _), v in psnr.items() if n == 'k1'):.6g} dB, "
+          f"int8 {min(v for (n, _), v in psnr.items() if n == 'int8'):.6g} "
+          f"dB; bit-identical {same}; int8 buffers bit-identical across "
+          f"ranks: {buffers_same}; ms per image (median of "
+          f"{DIST_TIMED}) K1 "
+          f"{[round(r['images']['k1_ms'], 3) for r in results]} (one "
+          f"process {ref['images']['k1_ms']:.6g}), int8 "
+          f"{[round(r['images']['int8_ms'], 3) for r in results]} (one "
+          f"process {ref['images']['int8_ms']:.6g}); {note}; on {card}",
+          flush=True)
+    if not (min(psnr.values()) >= PSNR_GATE and buffers_same):
+        raise RuntimeError(f"dist {label} images: {psnr}, int8 buffers "
+                           f"bit-identical {buffers_same}")
+    # run_training: rank 0 alone saves, equal parameters, K1 and K2 on
+    # every rank
+    cli = [res["cli"] for res in results]
+    differ = [k for r in range(1, ranks) for k in bit_identical(
+        cli[0]["params"], cli[r]["params"])]
+    print(f"dist {label} run_training: {DIST_CLI_STEPS} steps of "
+          f"{CLI_YAML} (K1 + K2, validation at step 5) on {ranks} ranks: "
+          f"checkpoint writes per rank {[c['saves'] for c in cli]}; "
+          f"parameters bit-identical across ranks: {not differ}; launches "
+          f"per rank {[c['launches'] for c in cli]}; {note}; on {card}",
+          flush=True)
+    if (cli[0]["saves"] != [DIST_CLI_STEPS] or any(c["saves"] for c in cli[1:])
+            or differ or any(not (c["launches"]["K1"] > 0
+                                  and c["launches"]["K2"] > 0) for c in cli)):
+        raise RuntimeError(f"dist {label} run_training: saves "
+                           f"{[c['saves'] for c in cli]}, differ {differ}, "
+                           f"launches {[c['launches'] for c in cli]}")
+    out.update(train_ms=[r["train"]["ms"] for r in results],
+               train_worst_rel_rms=worst[2], tto_ms=[r["tto"]["ms"]
+                                                     for r in results],
+               tto_loss_rel=tto_loss, tto_worst_rel_rms=tto_rel[w],
+               image_psnr={f"{n} rank {r}": v for (n, r), v in psnr.items()},
+               image_bit_identical=same,
+               k1_image_ms=[r["images"]["k1_ms"] for r in results],
+               int8_image_ms=[r["images"]["int8_ms"] for r in results],
+               cli_launches=[c["launches"] for c in cli],
+               train_launches=[r["train"]["launches"] for r in results])
+    return out
+
+
+def dist_phase(size, dirs, teacher, root, work, card) -> dict:
+    """Data parallelism over rays on the card (phase 8b): (a) a world of
+    one NCCL rank against no world, (b) two gloo ranks sharing
+    ``cuda:0``, (c) NCCL over two cards where the machine has them."""
+    t0 = time.perf_counter()
+    inputs = dist_inputs(size, dirs, teacher)
+    # the one-process references (and the world of one's comparison)
+    ref = {"train": dist_train(None, inputs, DIST_WORLD1_STEPS),
+           "tto": dist_tto(None, inputs), "images": dist_images(None, inputs)}
+    with world_of_one("nccl") as world:
+        one = dist_train(world, inputs, DIST_WORLD1_STEPS)
+        prof = nccl_profile(world, inputs)
+    differ = bit_identical(one["params"], ref["train"]["params"]) + [
+        k for k in ref["train"]["grads"]
+        if not torch.equal(one["grads"][k], ref["train"]["grads"][k])]
+    world_ms = statistics.median(one["ms"][1:])
+    plain_ms = statistics.median(ref["train"]["ms"][1:])
+    print(f"dist (a) NCCL world of 1 on cuda:0: fused train step of 4 x "
+          f"4096 rays through the distributed code path, "
+          f"{DIST_WORLD1_STEPS} steps: bit-identical to the step without a "
+          f"world: {not differ} (gradients of step 1, every parameter and "
+          f"moment after); median of steps 2-{DIST_WORLD1_STEPS} "
+          f"{world_ms:.6g} ms against {plain_ms:.6g} ms without a world; "
+          f"{one['bytes_all_reduced']} bytes all-reduced per step; "
+          f"profile: NCCL host records {prof['host']}, NCCL device time "
+          f"{prof['card_ms'] or NO_NCCL_KERNEL}"
+          f" on {card}", flush=True)
+    if differ or one["metrics"] != ref["train"]["metrics"]:
+        raise RuntimeError(f"dist (a): world of one differs: {differ}, "
+                           f"{one['metrics']} against "
+                           f"{ref['train']['metrics']}")
+    if "nccl:all_reduce" not in prof["host"]:
+        raise RuntimeError(f"dist (a): no NCCL all_reduce in the profile: "
+                           f"{prof}")
+    out = {"a": {"world_ms": world_ms, "plain_ms": plain_ms,
+                 "bytes_all_reduced": one["bytes_all_reduced"],
+                 "profile": prof}}
+    t_b = time.perf_counter()
+    results = launch.spawn(dist_rank, DIST_RANKS,
+                           (inputs, str(root), str(work / "dist_b")),
+                           backend="gloo", devices=["cuda:0"] * DIST_RANKS,
+                           timeout=DIST_TIMEOUT)
+    out["b"] = check_world("(b) gloo, 2 ranks on cuda:0", results, ref,
+                           card, shared=True)
+    out["b"]["seconds"] = time.perf_counter() - t_b
+    if torch.cuda.device_count() >= DIST_RANKS:
+        results = launch.spawn(dist_rank, DIST_RANKS,
+                               (inputs, str(root), str(work / "dist_c")),
+                               backend="nccl", timeout=DIST_TIMEOUT)
+        out["c"] = check_world("(c) NCCL, one card per rank", results, ref,
+                               card, shared=False)
+        kernels = [nccl_all_reduce_kernels(r["profile"]) for r in results]
+        out["c"]["nccl_all_reduce_ms"] = kernels
+        print(f"dist (c) NCCL all-reduce kernels on the card, per rank, in "
+              f"one profiled train step: {kernels} on {card}", flush=True)
+        if not all(kernels):
+            raise RuntimeError(f"dist (c): no NCCL all-reduce kernel in a "
+                               f"rank's profile: "
+                               f"{[r['profile'] for r in results]}")
+    else:
+        out["c"] = (f"not run: the machine has {torch.cuda.device_count()} "
+                    f"card; NCCL over two ranks needs a card each")
+        print(f"dist (c) {out['c']}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dist: (b) {out['b']['seconds']:.4g} s with its ranks' "
+          f"start-up, on {card}", flush=True)
+    phase("dist", t0)
+    return out
+
+
+def dist_launches(dist, name) -> dict:
+    """A kernel's launches on each rank of the dist phase's (b) world."""
+    return {f"{DIST_STEPS} train steps": [
+                r[name] for r in dist["b"]["train_launches"]],
+            f"run_training {DIST_CLI_STEPS} steps": [
+                r[name] for r in dist["b"]["cli_launches"]]}
+
+
 def val_image(cfg) -> str:
     crop = cfg.dataset.image_size - 2 * (cfg.dataset.image_size // 8)
     return f"{crop}x{crop}"
@@ -2932,6 +3409,20 @@ def main():
 
     t0 = time.perf_counter()
     dirs = directions(size)
+    if sys.argv[1:] == ["--dist-only"]:
+        # the dist phase alone (on a machine with two or more cards for
+        # its (c)), on the cli phase's SRN tree
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+        try:
+            make_srn_tree(work / "srn_cars", size, dirs, models,
+                          cli_tables())
+            dist = dist_phase(size, dirs, models, work / "srn_cars", work,
+                              card)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(json.dumps({"dist": dist}), flush=True)
+        print(f"wall: {time.perf_counter() - t_all:.2f} s", flush=True)
+        return
     rd_all = torch.einsum("hwi,ji->hwj", dirs, pose[:3, :3]).reshape(-1, 3)
     ro_all = pose[:3, 3].expand_as(rd_all)
     n_step = (cfg.dataset.train_batch_size
@@ -3080,8 +3571,14 @@ def main():
     phase("tto", t0)
 
     t0 = time.perf_counter()
+
+    def on_the_tree(root, work):
+        return {"srn_cars": srn_cars_steps(root, work, card),
+                "dist": dist_phase(size, dirs, models, root, work, card)}
+
     cli = cli_phase(size, dirs, models, train["fused"]["step_ms"], card,
-                    then=lambda root, work: srn_cars_steps(root, work, card))
+                    then=on_the_tree)
+    dist = cli["then"].pop("dist")
     phase("cli", t0)
 
     t0 = time.perf_counter()
@@ -3091,7 +3588,7 @@ def main():
     t0 = time.perf_counter()
     k4_vanilla = check_k4(K4_VANILLA_CASES, card, seed=SEED + 29)
     vanilla = vanilla_phase(card)
-    vanilla["srn_cars"] = cli.pop("then")
+    vanilla["srn_cars"] = cli.pop("then")["srn_cars"]
     phase("vanilla", t0)
 
     # one image runs each S once per chunk at R = chunk; one train step
@@ -3136,6 +3633,7 @@ def main():
         "cli_train_launches": cli["train_launches"]["K1"],
         "cli_val_launches": cli["val_launches"]["K1"],
         "eval_launches": ev["launches"]["K1"],
+        "dist_launches_per_rank": dist_launches(dist, "K1"),
         "launches_per_tto_step": tto["fused"]["launches_per_step"]["K1"],
         "train_step_ms": step_k1["ms"],
         "train_step_wrapper_ms": step_k1["wrapper_ms"],
@@ -3162,6 +3660,7 @@ def main():
             "cli_train_launches": cli["train_launches"][name],
             "cli_val_launches": cli["val_launches"][name],
             "eval_launches": ev["launches"][name],
+            "dist_launches_per_rank": dist_launches(dist, name),
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
             "rel_rms": max(r["rel_rms"] for r in bwd[name]),
             "ms": sum(r["ms"] for r in rows),
@@ -3255,6 +3754,7 @@ def main():
                                if k != "summary"}
                       | {"summary": {k: v for k, v in ev["summary"].items()
                                      if k != "per_object"}}}), flush=True)
+    print(json.dumps({"dist": dist}), flush=True)
     for name, results in (("train", train), ("tto", tto)):
         print(json.dumps({name: {m: {k: v for k, v in r.items()
                                      if k != "profile"}

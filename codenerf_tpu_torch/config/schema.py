@@ -16,9 +16,7 @@ are equal.  Kept from the JAX package (and through it the reference's
 ``load_config`` reads YAML with PyYAML when it can be imported and with
 ``yaml_lite`` (standard library only) otherwise; both resolve scalars as
 ``yaml.safe_load`` does, so the two give the same ``Config``.
-``dump_config`` always writes with ``yaml_lite``.  A field whose feature
-the port has not reached parses here and raises where it is used
-(``harness.py``): ``runtime.num_devices > 1``, until multi-GPU lands.
+``dump_config`` always writes with ``yaml_lite``.
 """
 
 from __future__ import annotations
@@ -200,12 +198,15 @@ class RuntimeConfig:
     ``torch.profiler`` Chrome trace of five steady-state steps),
     ``checkify`` (NaN / inf checks in the train step) and ``ray_chunks``.
     ``int8_serving`` (with ``int8_encode``) adds the int8 serving render
-    to every validation (``harness.py``, ``models/quantized.py``);
-    ``num_devices`` > 1 is parsed and refused by ``harness.py`` until
-    multi-GPU lands.
+    to every validation (``harness.py``, ``models/quantized.py``).
+    ``num_devices`` is the data-parallel world's size, as it sizes JAX's
+    mesh: ``harness.py`` joins the ranks that torchrun or ``train_cli -g``
+    started (``parallel.mesh.init_world``); 0 takes them all, a larger
+    number must equal their count, and without started ranks 0 or 1 is
+    one device.
     """
     load_checkpoint: str = ""
-    # devices to train on; 0 = all visible devices (the port runs one)
+    # ranks (one per device) to run on; 0 = every rank started
     num_devices: int = 0
     compute_dtype: Optional[str] = "bfloat16"
     use_pallas: bool = False

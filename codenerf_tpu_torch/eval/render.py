@@ -7,18 +7,25 @@ with the fine model's colour, deterministic sampling (perturb off), as the
 reference does for validation renders.  The renderer serves through
 ``serving_settings``: fc_out as separate sigma and feature products on the
 ray-structured path, as JAX's does; K1 serves under ``use_pallas``.
+
+With a ``world`` (``parallel.mesh``) the chunk size is rounded down to a
+multiple of its size, each rank renders its slice of every chunk and
+``all_gather_rays`` puts the chunk back together, so every rank returns
+the whole image (JAX render.py:53-76).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from codenerf_tpu_torch.core.geometry import ray_bundle
 from codenerf_tpu_torch.device import resolve_device
 from codenerf_tpu_torch.models.mlp import CodeNeRFConfig
+from codenerf_tpu_torch.parallel.mesh import (World, all_gather_rays,
+                                              shard_rays, world_size)
 from codenerf_tpu_torch.pipeline import RenderSettings, render_rays
 
 
@@ -35,8 +42,10 @@ def serving_settings(settings: RenderSettings) -> RenderSettings:
 
 
 def make_image_renderer(settings: RenderSettings, height: int, width: int,
-                        chunksize: int = 4096, device="cuda") -> Callable:
-    """Build a full-image renderer on ``device``.
+                        chunksize: int = 4096, device="cuda",
+                        world: Optional[World] = None) -> Callable:
+    """Build a full-image renderer on ``device``, each chunk split over
+    the ranks of ``world`` (None: one device).
 
     Returned signature: ``render_image(models, directions, pose, z_s, z_t)
     -> rgb [H*W, 3]`` with ``models`` {"coarse", "fine"} on ``device``,
@@ -46,6 +55,9 @@ def make_image_renderer(settings: RenderSettings, height: int, width: int,
     dev = resolve_device(device)
     settings = serving_settings(settings)
     num_rays = height * width
+    W = world_size(world)
+    # every chunk splits evenly over the ranks
+    chunksize = max(W, chunksize // W * W)
     num_chunks = -(-num_rays // chunksize)
     pad = num_chunks * chunksize - num_rays
 
@@ -57,13 +69,14 @@ def make_image_renderer(settings: RenderSettings, height: int, width: int,
                                      value=1.0)
         zs = zt = None
         if z_s is not None:
-            zs = z_s.to(dev).expand(chunksize, z_s.shape[-1])
-            zt = z_t.to(dev).expand(chunksize, z_t.shape[-1])
+            zs = z_s.to(dev).expand(chunksize // W, z_s.shape[-1])
+            zt = z_t.to(dev).expand(chunksize // W, z_t.shape[-1])
         rgb = []
         for i in range(num_chunks):
             sl = slice(i * chunksize, (i + 1) * chunksize)
-            _, out_f = render_rays(models, settings, ro[sl], rd[sl], zs, zt)
-            rgb.append(out_f.rgb)
+            _, out_f = render_rays(models, settings,
+                                   *shard_rays(world, ro[sl], rd[sl]), zs, zt)
+            rgb.append(all_gather_rays(world, out_f.rgb))
         return torch.cat(rgb)[:num_rays]
 
     return render_image

@@ -37,8 +37,17 @@ ray indices, the coarse jitter and the fine u; ``inds`` and ``draws``
 step renders and backpropagates, every model parameter has
 ``requires_grad`` off (restored after), so the models get no ``.grad``
 and the ray-structured path skips its weight-gradient products; K2 and
-K3 still compute theirs, which nothing reads.  Multi-GPU (JAX's ``mesh``
-argument) is not ported.
+K3 still compute theirs, which nothing reads.
+
+Each ``make_*`` step takes JAX's ``mesh`` as ``world``
+(``parallel.mesh``; JAX tto.py:84, 178, 290, 409, 517): each rank makes
+the pose, the rays of every pixel, the global indices and draws,
+renders its slice of the K*V*R rays and backpropagates its part of
+each object's mean; one all-reduce sums the codes', pose's and xi's
+gradients and the metrics.  The code regularizer keeps the global R
+(sqrt(R) ||z|| in the batched steps, the norm of codes expanded to R
+rows in the single step); its gradient is added after the all-reduce,
+once on every rank.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -55,7 +64,10 @@ from codenerf_tpu_torch.core.geometry import pose_spherical
 from codenerf_tpu_torch.core.metrics import mse2psnr
 from codenerf_tpu_torch.device import resolve_device
 from codenerf_tpu_torch.models.codes import mean_codes
-from codenerf_tpu_torch.pipeline import RenderSettings, render_rays_train
+from codenerf_tpu_torch.parallel.mesh import (World, all_reduce_,
+                                              all_reduce_grads, shard_rays)
+from codenerf_tpu_torch.pipeline import (RenderSettings, draw_train_randoms,
+                                         render_rays_train)
 from codenerf_tpu_torch.train.optim import (build_se3_refine_optimizer,
                                             build_tto_optimizer)
 from codenerf_tpu_torch.train.step import gather_ray_batch
@@ -167,28 +179,39 @@ def frozen(models: dict):
 
 
 def _object_losses(models, settings, poses, z_s, z_t, directions, images,
-                   generator, num_random_rays, perturb, inds, draws):
+                   generator, num_random_rays, perturb, inds, draws, world):
     """(loss_c, loss_f) per object [K] for K objects' codes [K, C] and
     their K*V views: poses [K*V, 4, 4], images [K*V, H, W, C].  Each view
     draws ``num_random_rays`` pixels (``inds`` [K*V, R] replaces the
-    draw); the losses are means over each object's V*R rays."""
+    draw); the losses are means over each object's V*R rays, of which
+    this rank of ``world`` renders its slice (its part of each mean; the
+    other rays count as zero)."""
     K, KV, R = z_s.shape[0], poses.shape[0], num_random_rays
+    N = KV * R
     ids = torch.zeros(KV, dtype=torch.long, device=poses.device)
     ro, rd, target, _ = gather_ray_batch(directions, poses, images, ids,
                                          generator, R, inds)
+    if draws is None:
+        draws = draw_train_randoms(settings, N, generator, perturb, 0.0,
+                                   ro.dtype, ro.device)
 
     def per_ray(z):
         return z[:, None, :].expand(K, KV // K * R, z.shape[-1]).reshape(
-            KV * R, z.shape[-1])
+            N, z.shape[-1])
 
-    out_c, out_f = render_rays_train(models, settings, ro, rd, per_ray(z_s),
-                                     per_ray(z_t), generator, perturb, 0.0,
-                                     draws)
-    loss_c = torch.mean(((out_c.rgb - target[:, :3]) ** 2).reshape(K, -1),
-                        dim=1)
-    loss_f = torch.mean(((out_f.rgb - target[:, :3]) ** 2).reshape(K, -1),
-                        dim=1)
-    return loss_c, loss_f
+    ro, rd, target, zs, zt = shard_rays(world, ro, rd, target, per_ray(z_s),
+                                        per_ray(z_t))
+    out_c, out_f = render_rays_train(
+        models, settings, ro, rd, zs, zt, None, perturb, 0.0,
+        {k: shard_rays(world, v) for k, v in draws.items()})
+    lo = 0 if world is None else world.rank * ro.shape[0]
+
+    def mean(rgb):
+        err = torch.nn.functional.pad((rgb - target[:, :3]) ** 2,
+                                      (0, 0, lo, N - lo - rgb.shape[0]))
+        return torch.mean(err.reshape(K, -1), dim=1)
+
+    return mean(out_c.rgb), mean(out_f.rgb)
 
 
 def _object_code_norms(variables, num_random_rays, regularizer_lambda):
@@ -199,10 +222,14 @@ def _object_code_norms(variables, num_random_rays, regularizer_lambda):
         + torch.linalg.norm(variables["z_t"], dim=-1))
 
 
-def _update(state, loss):
-    """Backpropagate ``loss`` into the state's variables and step its
-    optimizer."""
-    loss.backward()
+def _update(state, data_loss, losses, loss_e, world):
+    """Backpropagate this rank's ``data_loss``, sum the variables'
+    gradients and the ``losses`` over ``world``'s ranks, add the
+    regularizer ``loss_e``'s gradient, and step the state's optimizer."""
+    data_loss.backward()
+    all_reduce_grads(world, state.variables.values())
+    all_reduce_(world, losses)
+    loss_e.backward()
     state.optimizer.step()
     state.step += 1
 
@@ -217,8 +244,10 @@ def _batched_metrics(loss_c, loss_f, loss_e, pose_err):
 
 def make_tto_step(settings: RenderSettings, optimizer,
                   num_random_rays: int, regularizer_lambda: float,
-                  perturb: bool, device="cuda") -> Callable:
-    """Build the single-object TTO step on ``device``.
+                  perturb: bool, device="cuda",
+                  world: Optional[World] = None) -> Callable:
+    """Build the single-object TTO step on ``device``, on this rank's
+    share of the rays of ``world`` (None: one device).
 
     Returned signature: ``tto_step(state, models, directions,
     target_image, pose_gt, generator, inds=None, draws=None) -> (state,
@@ -240,26 +269,26 @@ def make_tto_step(settings: RenderSettings, optimizer,
                 models, settings, cam_pose, v["z_s"], v["z_t"],
                 directions.to(dev), target_image.to(dev)[None], generator,
                 R, perturb, None if inds is None else inds.reshape(1, R),
-                draws)
-            loss_c, loss_f = loss_c[0], loss_f[0]
+                draws, world)
             # reference eval.py:160 regularizes the expanded [R, C] codes
             loss_e = regularizer_lambda * (
                 torch.linalg.norm(v["z_s"].expand(R, -1))
                 + torch.linalg.norm(v["z_t"].expand(R, -1)))
-            loss = loss_c + loss_f + loss_e
-            _update(state, loss)
+            losses = torch.cat([loss_c, loss_f]).detach()
+            _update(state, loss_c[0] + loss_f[0], [losses], loss_e, world)
         perr = lie.pose_error(pose_gt.to(dev), cam_pose[0].detach())
-        loss_f = loss_f.detach()
+        loss_c, loss_f = losses
+        loss_e = loss_e.detach()
         return state, TTOMetrics(
-            loss=loss.detach(), loss_coarse=loss_c.detach(),
-            loss_fine=loss_f, loss_embedding=loss_e.detach(),
+            loss=loss_c + loss_f + loss_e, loss_coarse=loss_c,
+            loss_fine=loss_f, loss_embedding=loss_e,
             psnr=mse2psnr(loss_f), pose_error=perr)
 
     return tto_step
 
 
 def _make_batched_step(settings, num_random_rays, regularizer_lambda,
-                       perturb, device, refine):
+                       perturb, device, refine, world):
     """The step of every batched kind: K objects ([K] pose leaves) or K
     objects x V views ([K, V]), spherical or, with ``refine``, SE(3)
     refined from base poses."""
@@ -280,9 +309,12 @@ def _make_batched_step(settings, num_random_rays, regularizer_lambda,
                 models, settings, cam_poses.reshape(-1, 4, 4), v["z_s"],
                 v["z_t"], directions.to(dev),
                 target_images.to(dev).flatten(0, len(lead) - 1), generator,
-                R, perturb, inds, draws)
+                R, perturb, inds, draws, world)
             loss_e = _object_code_norms(v, R, regularizer_lambda)
-            _update(state, torch.sum(loss_c + loss_f + loss_e))
+            losses = torch.stack([loss_c, loss_f]).detach()
+            _update(state, torch.sum(loss_c + loss_f), [losses],
+                    torch.sum(loss_e), world)
+            loss_c, loss_f = losses
         perr = lie.pose_error(poses_gt.to(dev), cam_poses.detach())
         if len(lead) == 2:
             perr = perr.mean(1)
@@ -305,7 +337,8 @@ def _make_batched_step(settings, num_random_rays, regularizer_lambda,
 
 def make_batched_tto_step(settings: RenderSettings, optimizer,
                           num_random_rays: int, regularizer_lambda: float,
-                          perturb: bool, device="cuda") -> Callable:
+                          perturb: bool, device="cuda",
+                          world: Optional[World] = None) -> Callable:
     """Build the K-object TTO step on ``device``: each object draws its
     own pixels from its own target under its own pose, the K ray batches
     render as one, and the K losses are summed for the backward (object
@@ -324,7 +357,7 @@ def make_batched_tto_step(settings: RenderSettings, optimizer,
     over its V*R rays and its pose error the mean over its views.
     """
     return _make_batched_step(settings, num_random_rays, regularizer_lambda,
-                              perturb, device, refine=False)
+                              perturb, device, refine=False, world=world)
 
 
 # JAX's name for the K-object, V-view step: the batched step on a
@@ -373,7 +406,8 @@ multiview_se3_refined_poses = se3_refined_poses
 
 def make_se3_refine_step(settings: RenderSettings, optimizer,
                          num_random_rays: int, regularizer_lambda: float,
-                         perturb: bool, device="cuda") -> Callable:
+                         perturb: bool, device="cuda",
+                         world: Optional[World] = None) -> Callable:
     """Build the K-object SE(3) refinement step on ``device``: the
     batched step's ray draw and losses with cam_pose = se3_exp(xi) @
     base_pose.
@@ -388,7 +422,7 @@ def make_se3_refine_step(settings: RenderSettings, optimizer,
     views.
     """
     return _make_batched_step(settings, num_random_rays, regularizer_lambda,
-                              perturb, device, refine=True)
+                              perturb, device, refine=True, world=world)
 
 
 # JAX's name for the K-object, V-view refinement step

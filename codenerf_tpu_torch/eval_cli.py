@@ -16,7 +16,10 @@ alone one batched group (``validate_batched``), neither the reference's
 ``validate`` rounds (the only mode of a vanilla model: the other two
 refuse it, as JAX's do).  ``--num-objects`` sizes the code tables from the
 checkpoint when the val split's train directory holds none (TTO starts
-from the tables' mean).  ``--multihost`` raises until multi-GPU lands.
+from the tables' mean).  ``--multihost`` joins torchrun's process group
+(``torchrun --nproc-per-node N -m codenerf_tpu_torch.eval_cli --multihost
+...``): every rank solves the same objects on its share of the rays,
+with the state broadcast from rank 0, and rank 0 prints the results.
 With ``runtime.int8_serving=true`` (and ``runtime.int8_encode=true``)
 among the overrides, every mode also renders through the int8 serving
 path and reports its PSNR and SSIM (the category table's ``int8 PSNR``
@@ -24,6 +27,7 @@ column).
 """
 
 import argparse
+import os
 
 
 def main(argv=None):
@@ -53,25 +57,39 @@ def main(argv=None):
                         help="Rows of the checkpoint's code tables when they "
                              "differ from the train split's object count.")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host evaluation (not ported).")
+                        help="Join torchrun's process group: the ranks "
+                             "split every step's rays.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device to evaluate on (cuda or cpu).")
     parser.add_argument("overrides", nargs="*",
                         help="Dotted config overrides, e.g. "
                              "dataset.basedir=data/srn_cars")
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-GPU and multi-host evaluation is the ROADMAP "
-            "Queue 1 item multi-GPU")
 
+    from codenerf_tpu_torch.parallel import close_world, init_world
+
+    if args.multihost:
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                "--multihost joins torchrun's process group: run it under "
+                "torchrun (WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT "
+                "are not set)")
+        init_world(device=args.device)
+    try:
+        return _evaluate(args)
+    finally:
+        close_world()
+
+
+def _evaluate(args):
     from codenerf_tpu_torch.config import load_config
     from codenerf_tpu_torch.harness import (Harness, validate,
                                             validate_batched,
                                             validate_category)
     from codenerf_tpu_torch.train.checkpoint import load_checkpoint
-    from codenerf_tpu_torch.train.state import init_train_state
-    from codenerf_tpu_torch.utils.logging import MetricLogger
+    from codenerf_tpu_torch.train.state import (broadcast_train_state,
+                                                init_train_state)
+    from codenerf_tpu_torch.utils.logging import MetricLogger, is_main_process
 
     cfg = load_config(args.config, overrides=args.overrides)
     harness = Harness.from_config(cfg, device=args.device)
@@ -81,7 +99,9 @@ def main(argv=None):
         args.num_objects or harness.train_dataset.num_objects,
         seed=cfg.experiment.randomseed, device=harness.device)
     state = load_checkpoint(args.load_checkpoint, state)
-    print(f"Restored checkpoint at step {state.step}")
+    broadcast_train_state(harness.world, state)
+    if is_main_process():
+        print(f"Restored checkpoint at step {state.step}")
     params = {**state.models, "codes": state.tables}
 
     if args.all_objects:
@@ -99,7 +119,6 @@ def main(argv=None):
         out = [validate(harness, params, logger, i) for i in range(rounds)]
     logger.close()
     return out
-
 
 if __name__ == "__main__":
     main()

@@ -23,10 +23,17 @@ int8 serving path (``models/quantized.py``, calibrated by
 ``int8_render_params`` at the render pose; ``runtime.int8_encode``
 quantizes the encode stream too) and reports its PSNR and SSIM.
 
-The port runs on one device: ``runtime.num_devices > 1`` raises
-``NotImplementedError`` until multi-GPU lands (ROADMAP Queue 1,
-multi-GPU).  ``validate_batched`` and ``validate_category`` refuse a
-vanilla model, as JAX's assert.
+Data parallelism (JAX's mesh, harness.py:91-93): ``from_config`` joins
+the world of ``runtime.num_devices`` ranks (``parallel.mesh.init_world``:
+0 takes every rank torchrun or ``train_cli -g`` started, a larger number
+must equal their count; without ranks, one device) and keeps it with its
+device.  Every rank of a world draws from the same seeds, JAX's one-host
+seeds (``randomseed + 1`` for the train stream, ``randomseed`` for
+validation), and runs every validation with the world: the TTO steps and
+the renders split their rays over the ranks, and every rank gets the
+same metrics and images.  Rank 0 alone prints and logs.
+``validate_batched`` and ``validate_category`` refuse a vanilla model,
+as JAX's assert.
 """
 
 from __future__ import annotations
@@ -59,21 +66,12 @@ from codenerf_tpu_torch.eval.tto import (BatchedTTOMetrics, TTOState,
                                          make_se3_refine_step, make_tto_step,
                                          se3_refined_poses, select_per_object)
 from codenerf_tpu_torch.models.quantized import quantize_for_serving
+from codenerf_tpu_torch.parallel.mesh import (World, all_reduce_, init_world,
+                                              world_size)
 from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train.optim import build_tto_optimizer
 from codenerf_tpu_torch.train.state import has_codes
-from codenerf_tpu_torch.utils.logging import (MetricLogger, is_main_process,
-                                              process_index)
-
-
-def _refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a runtime the port cannot run
-    yet, naming its ROADMAP Queue 1 item."""
-    if cfg.runtime.num_devices > 1:
-        raise NotImplementedError(
-            f"runtime.num_devices={cfg.runtime.num_devices}: the port trains "
-            "on one device; multi-GPU data parallelism is the ROADMAP "
-            "Queue 1 item multi-GPU")
+from codenerf_tpu_torch.utils.logging import MetricLogger, is_main_process
 
 
 def generator(device, *entropy) -> torch.Generator:
@@ -97,11 +95,12 @@ class Harness:
     directions: torch.Tensor
     logdir: Path
     device: torch.device
+    world: Optional[World] = None
 
     @classmethod
     def from_config(cls, cfg: Config, device="cuda") -> "Harness":
-        dev = resolve_device(device)
-        _refuse_unported(cfg)
+        world = init_world(cfg.runtime.num_devices, device=device)
+        dev = world.device if world is not None else resolve_device(device)
         # experiment dir + resolved-config dump (reference util.py:44-56)
         logdir = Path(cfg.experiment.logdir) / cfg.experiment.id
         if is_main_process():
@@ -111,11 +110,11 @@ class Harness:
         train_ds = build_dataset(cfg.dataset, "train")
         val_ds = build_dataset(cfg.dataset, "val")
 
-        # the JAX package's seeds: a train stream per process, one shared
-        # validation stream
+        # the JAX package's one-host seeds: every rank of a world draws
+        # the same train batches and splits their rays
         seed = cfg.experiment.randomseed
         train_iter = BatchIterator(train_ds, cfg.dataset.train_batch_size,
-                                   seed=seed + 1 + process_index())
+                                   seed=seed + 1)
         val_iter = BatchIterator(val_ds, cfg.dataset.val_batch_size,
                                  seed=seed)
 
@@ -149,7 +148,7 @@ class Harness:
                    train_dataset=train_ds, val_dataset=val_ds,
                    train_iter=train_iter, val_iter=val_iter, height=height,
                    width=width, directions=directions, logdir=logdir,
-                   device=dev)
+                   device=dev, world=world)
 
     @property
     def has_codes(self) -> bool:
@@ -195,7 +194,7 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
     render = make_image_renderer(harness.settings, harness.height,
                                  harness.width,
                                  chunksize=cfg.nerf.validation.chunksize,
-                                 device=dev)
+                                 device=dev, world=harness.world)
     models = {"coarse": params["coarse"], "fine": params["fine"]}
     if not harness.has_codes:
         return _validation_images(harness, render, models, target, pose_gt,
@@ -204,7 +203,7 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
 
     tto, tto_opt = init_tto_state(codes, opt_cfg, device=dev)
     tto_step = make_tto_step(harness.settings, tto_opt, n_rays, lam, perturb,
-                             device=dev)
+                             device=dev, world=harness.world)
     gen = generator(dev, seed)
     n_iters = (cfg.experiment.val_iterations if val_iterations is None
                else val_iterations)
@@ -283,7 +282,8 @@ def validate(harness: Harness, params: dict, logger: MetricLogger,
     if refine_steps > 0:
         ref, ref_opt, base_poses = init_se3_refine_state(tto, opt_cfg)
         ref_step = make_se3_refine_step(harness.settings, ref_opt, n_rays,
-                                        lam, perturb, device=dev)
+                                        lam, perturb, device=dev,
+                                        world=harness.world)
         then = time.time()
         for vi in range(refine_steps):
             ref, m = ref_step(ref, models, dirs, target[None], base_poses,
@@ -327,7 +327,10 @@ def int8_render_params(harness: Harness, models: dict, cam_pose, z_s, z_t,
     (JAX harness.py:287-312): ``n_rays`` pixels (every pixel of a 128x128
     view) drawn by ``np.random.default_rng(0)`` as JAX draws them, the
     codes [1, C] broadcast to every ray (None for a vanilla model), and
-    ``runtime.int8_encode`` for the encode stream."""
+    ``runtime.int8_encode`` for the encode stream.  The draw does not
+    depend on the rank, and a world's parameters are rank 0's, so every
+    rank of a world calibrates to the same buffers and serves its slice
+    of the image with the same int8 model."""
     dirs = harness.directions.reshape(-1, 3)
     n = min(n_rays, dirs.shape[0])
     idx = np.random.default_rng(0).choice(dirs.shape[0], n, replace=False)
@@ -337,9 +340,10 @@ def int8_render_params(harness: Harness, models: dict, cam_pose, z_s, z_t,
     if z_s is not None:
         zs = z_s.reshape(1, -1).expand(n, -1)
         zt = z_t.reshape(1, -1).expand(n, -1)
-    return quantize_for_serving(
+    qmodels = quantize_for_serving(
         models, harness.settings, ro.reshape(n, 3), rd.reshape(n, 3), zs, zt,
         encode_stream=harness.cfg.runtime.int8_encode)
+    return qmodels
 
 
 def _ssim_of(harness, rgb, target) -> float:
@@ -498,7 +502,8 @@ def validate_batched(harness: Harness, params: dict, logger: MetricLogger,
                                           pose_init=pose_init, device=dev)
     tto, tto_opt = init()
     tto_step = make_batched_tto_step(harness.settings, tto_opt, rays, lam,
-                                     perturb, device=dev)
+                                     perturb, device=dev,
+                                     world=harness.world)
     gen = generator(dev, seed)
     n_iters = (cfg.experiment.val_iterations if val_iterations is None
                else val_iterations)
@@ -584,7 +589,8 @@ def validate_batched(harness: Harness, params: dict, logger: MetricLogger,
                     else init_se3_refine_state)
         ref, ref_opt, base_poses = init_ref(tto, opt_cfg)
         ref_step = make_se3_refine_step(harness.settings, ref_opt, rays, lam,
-                                        perturb, device=dev)
+                                        perturb, device=dev,
+                                        world=harness.world)
         then = time.time()
         for vi in range(refine_steps):
             ref, m = ref_step(ref, models, dirs, targets, base_poses,
@@ -617,7 +623,7 @@ def validate_batched(harness: Harness, params: dict, logger: MetricLogger,
     render = make_image_renderer(harness.settings, harness.height,
                                  harness.width,
                                  chunksize=cfg.nerf.validation.chunksize,
-                                 device=dev)
+                                 device=dev, world=harness.world)
     pose_err = m.pose_error.cpu().numpy()
     per_object = []
     for kk in range(K):
@@ -686,12 +692,18 @@ def validate_category(harness: Harness, params: dict, logger: MetricLogger,
     a short last group is padded by repeating its first object, and the
     pads are left out of the report.  A group that runs out of device
     memory (``capacity.is_oom_error``) is redone at half the K, with the
-    rows already done kept; every other error is raised.  Prints the
+    rows already done kept; every other error is raised, and so is an
+    out-of-memory error in a world of more than one rank.  Prints the
     per-object table and the category means (with the int8 PSNR column
     and ``psnr_int8_mean`` / ``ssim_int8_mean`` under
     ``runtime.int8_serving``, JAX harness.py:761-787); returns them, with
     the K the groups ran at, the TTO seconds of all groups and objects
-    per minute.
+    per minute.  In a world each rank clamps K by its own device, as
+    JAX's reads device 0, and the ranks run the least of their Ks.  A
+    rank that runs out of memory there stops inside a group whose
+    collectives the other ranks have entered, so no later agreement can
+    line the ranks' collectives up again: it raises, and the launcher
+    (``parallel.launch.spawn``, torchrun) brings the world down.
     """
     _require_codes(harness, "category evaluation")
     cfg = harness.cfg
@@ -700,6 +712,10 @@ def validate_category(harness: Harness, params: dict, logger: MetricLogger,
     fit = capacity.max_batch_objects(
         harness.settings, cfg.nerf.ray_sampler.num_random_rays * V, K,
         device=harness.device)
+    # each rank's device sets its own K; the world runs the least
+    fit_t = torch.tensor([fit])
+    all_reduce_(harness.world, [fit_t], op=torch.distributed.ReduceOp.MIN)
+    fit = int(fit_t)
     if fit < K and is_main_process():
         print(f"[VAL   ] batch-objects {K} exceeds the device memory budget "
               f"at these shapes; auto-splitting into groups of {fit} "
@@ -722,7 +738,8 @@ def validate_category(harness: Harness, params: dict, logger: MetricLogger,
                                    samples=padded, iteration=group_idx,
                                    tto_views=V)
         except Exception as err:
-            if K <= 1 or not capacity.is_oom_error(err):
+            if (K <= 1 or not capacity.is_oom_error(err)
+                    or world_size(harness.world) > 1):
                 raise
             K = max(1, K // 2)
             if harness.device.type == "cuda":

@@ -5,13 +5,16 @@ point.  It is compiled by one ``nvcc`` command into a shared library under
 ``build/torch_kernels/`` at the root of the checkout and loaded with
 ``ctypes``; no PyTorch header is compiled.  The library is named by a hash
 of its source, the shared headers (``csrc/*.cuh``) and the flags, written
-under a temporary name and renamed into place, so concurrent builds and
-stale outputs are harmless, and an edited header builds a new library.
+under a temporary name and renamed into place, so stale outputs are
+harmless, and an edited header builds a new library.  A file lock beside
+it lets one process build a library while the others that need it (the
+ranks of a world) wait for it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,16 +55,22 @@ def build(name: str) -> dict:
     if out.exists():
         return {"path": out, "seconds": 0.0, "log": "(cached)"}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with open(out.with_name(f"{out.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return {"path": out, "seconds": 0.0,
+                    "log": "(built by another process)"}
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):"
+                               f"\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
     return {"path": out, "seconds": seconds,
             "log": proc.stdout + proc.stderr}
 

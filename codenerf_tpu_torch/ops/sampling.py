@@ -10,8 +10,8 @@ usual NeRF convention, and kept so on purpose (point_sampler.py:40-43):
 Depths carry no gradient (the reference detaches them; JAX
 ``stop_gradient``).  With ``perturb`` the coarse depths are jittered within
 their stratification bins and the inverse CDF is taken at uniform random
-u; the draws come from a ``torch.Generator``, or are passed in explicitly
-(``t_rand``, ``u``) so that a test can feed JAX's draws.
+u; the draws are passed in (``t_rand``, ``u``: the port's
+``pipeline.draw_train_randoms``, or JAX's in a test).
 """
 
 from __future__ import annotations
@@ -37,26 +37,20 @@ def stratified_bins(z_vals):
     return lower, upper
 
 
-def _uniform(shape, like, generator, given):
-    if given is not None:
-        return given.to(dtype=like.dtype, device=like.device)
-    if generator is None:
-        raise ValueError("perturb=True needs a generator or explicit draws")
-    return torch.rand(shape, generator=generator, dtype=like.dtype,
-                      device=like.device)
+def _uniform(given, like, name):
+    if given is None:
+        raise ValueError(f"perturb=True needs the draws {name}")
+    return given.to(dtype=like.dtype, device=like.device)
 
 
-def sample_stratified(ro, rd, z_vals, perturb: bool = False,
-                      generator: torch.Generator | None = None,
-                      t_rand=None):
+def sample_stratified(ro, rd, z_vals, perturb: bool = False, t_rand=None):
     """Coarse samples (point_sampler.py:49-71): ro, rd [R, 3] and z_vals
     [S] -> pts [R, S, 3], z [R, S].  With ``perturb`` each depth is
-    uniform in its bin, from ``t_rand`` [R, S] or drawn from
-    ``generator``."""
+    uniform in its bin, from the uniform draws ``t_rand`` [R, S]."""
     num_rays, num_samples = ro.shape[-2], z_vals.shape[-1]
     if perturb:
         lower, upper = stratified_bins(z_vals)
-        t = _uniform((num_rays, num_samples), ro, generator, t_rand)
+        t = _uniform(t_rand, ro, "t_rand")
         z = lower + (upper - lower) * t
     else:
         z = z_vals.expand(num_rays, num_samples)
@@ -132,10 +126,10 @@ def _pdf_depths(weights, z_vals, num_fine, u=None):
 
 
 def sample_pdf(ro, rd, weights, z_vals, num_fine: int, perturb: bool = False,
-               generator: torch.Generator | None = None, u=None):
+               u=None):
     """Hierarchical importance resampling by CDF inversion
     (point_sampler.py:73-120): at evenly spaced u, or with ``perturb`` at
-    uniform u [R, num_fine], given or drawn from ``generator``.
+    the uniform draws ``u`` [R, num_fine].
 
     weights: [R, S-2] interior coarse compositing weights (the caller
     passes ``weights[..., 1:-1]``, reference nerf/__init__.py:87);
@@ -143,7 +137,7 @@ def sample_pdf(ro, rd, weights, z_vals, num_fine: int, perturb: bool = False,
     sorted union of coarse and fine depths [R, S+num_fine].
     """
     if perturb:
-        u = _uniform(weights.shape[:-1] + (num_fine,), weights, generator, u)
+        u = _uniform(u, weights, "u")
     else:
         u = None
     z_union = _pdf_depths(weights, z_vals, num_fine, u)

@@ -303,6 +303,32 @@ def add_sigma_noise(raw, noise):
     return torch.cat([raw[..., :3], raw[..., 3:] + noise[..., None]], dim=-1)
 
 
+def draw_train_randoms(settings: RenderSettings, num_rays: int,
+                       generator: Optional[torch.Generator],
+                       perturb: bool = True, noise_std: float = 0.0,
+                       dtype=torch.float32, device=None) -> dict:
+    """``render_rays_train``'s random numbers for ``num_rays`` rays, drawn
+    from ``generator`` in this order: coarse jitter ``t_rand`` [R, Sc],
+    coarse noise ``noise_c`` [R, Sc] (with noise), fine ``u`` [R, Sf],
+    fine noise ``noise_f`` [R, Sc + Sf] (with noise); {} without
+    ``perturb``.  Drawn at the global ray count and sliced per rank, they
+    give each rank of a world its part of one draw."""
+    if not perturb:
+        return {}
+    if generator is None:
+        raise ValueError("perturb=True needs a generator or explicit draws")
+    noisy = noise_std > 0.0
+    sc, sf = settings.num_coarse, settings.num_fine
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    out = {"t_rand": torch.rand((num_rays, sc), **kw)}
+    if noisy:
+        out["noise_c"] = torch.randn((num_rays, sc), **kw)
+    out["u"] = torch.rand((num_rays, sf), **kw)
+    if noisy:
+        out["noise_f"] = torch.randn((num_rays, sc + sf), **kw)
+    return out
+
+
 def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
                       z_t, generator: Optional[torch.Generator] = None,
                       perturb: bool = True, noise_std: float = 0.0,
@@ -313,15 +339,17 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
 
     With ``perturb`` the depths are jittered and, when ``noise_std > 0``,
     N(0, noise_std) is added to each raw sigma (the reference's
-    ``radiance_field_noise_std``).  The draws come from ``generator`` in
-    the order coarse jitter, coarse noise, fine u, fine noise, or from
-    ``draws`` ({"t_rand", "u", "noise_c", "noise_f"}) so that a test can
-    feed JAX's.  The trunk takes ``trunk_path(settings, model_cfg)``,
-    under ``remat_active(settings)`` through ``torch.utils.checkpoint``.
+    ``radiance_field_noise_std``).  The draws are ``draws`` ({"t_rand",
+    "u", "noise_c", "noise_f"}: a rank's slice of a global draw, or JAX's
+    in a test), else ``draw_train_randoms`` from ``generator``.  The
+    trunk takes ``trunk_path(settings, model_cfg)``, under
+    ``remat_active(settings)`` through ``torch.utils.checkpoint``.
     """
     _check_viewdirs(settings)
     ro, rd, rd_view = _ndc(settings, ro, rd)
-    draws = draws or {}
+    if draws is None:
+        draws = draw_train_randoms(settings, ro.shape[0], generator, perturb,
+                                   noise_std, ro.dtype, ro.device)
     noisy = noise_std > 0.0 and perturb
 
     def forward(model, model_cfg, pts):
@@ -330,29 +358,25 @@ def render_rays_train(models: dict, settings: RenderSettings, ro, rd, z_s,
                               rd_view, z_s, z_t, use_reentrant=False)
         return _forward(model, model_cfg, settings, pts, rd_view, z_s, z_t)
 
-    def noise(key, shape):
-        if key in draws:
-            return noise_std * draws[key].to(ro.device, ro.dtype)
-        return noise_std * torch.randn(shape, generator=generator,
-                                       dtype=ro.dtype, device=ro.device)
+    def noise(key):
+        return noise_std * draws[key].to(ro.device, ro.dtype)
 
     z_grid = base_z_vals(settings.num_coarse, settings.near, settings.far,
                          settings.spacing_mode, dtype=ro.dtype,
                          device=ro.device)
-    pts_c, z_c = sample_stratified(ro, rd, z_grid, perturb, generator,
+    pts_c, z_c = sample_stratified(ro, rd, z_grid, perturb,
                                    draws.get("t_rand"))
     raw_c = forward(models["coarse"], settings.coarse_cfg, pts_c)
     if noisy:
-        raw_c = add_sigma_noise(raw_c, noise("noise_c", raw_c.shape[:-1]))
+        raw_c = add_sigma_noise(raw_c, noise("noise_c"))
     out_c = volume_render(raw_c, z_c, rd,
                           white_background=settings.white_background)
     # interior-weight slice per reference nerf/__init__.py:87
     pts_f, z_f = sample_pdf(ro, rd, out_c.weights[..., 1:-1], z_c,
-                            settings.num_fine, perturb, generator,
-                            draws.get("u"))
+                            settings.num_fine, perturb, draws.get("u"))
     raw_f = forward(models["fine"], settings.fine_cfg, pts_f)
     if noisy:
-        raw_f = add_sigma_noise(raw_f, noise("noise_f", raw_f.shape[:-1]))
+        raw_f = add_sigma_noise(raw_f, noise("noise_f"))
     out_f = volume_render(raw_f, z_f, rd,
                           white_background=settings.white_background)
     return out_c, out_f

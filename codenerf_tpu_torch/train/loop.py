@@ -8,10 +8,15 @@ lines every ``print_every`` steps, checkpoints every ``save_every`` steps
 and at the end, ``validate`` every ``validate_every`` steps, batches
 decoded and shipped to the device by a ``PrefetchIterator`` of depth 2.
 
-Seeds, as the JAX package's: the models and code tables are drawn from
-``randomseed + 1`` (plus the process's rank), and the ray generator is
-seeded the same way at every launch, as JAX re-splits its key from the
-seed at every launch; no generator state is saved.
+Seeds, as the JAX package's on one host: the models and code tables are
+drawn from ``randomseed + 1``, and the ray generator is seeded the same
+way at every launch, as JAX re-splits its key from the seed at every
+launch; no generator state is saved.  In a world (the harness's, JAX's
+mesh) every rank uses these seeds, so every rank draws the same batch
+and rays and splits them; the state is broadcast from rank 0 after the
+init and the restore, every rank validates with the world, and rank 0
+alone writes checkpoints and logs, with a barrier before the call
+returns.
 ``runtime.profile_dir`` records a ``torch.profiler`` trace of steps
 [start + 5, start + 10) as a Chrome trace, the counterpart of
 ``jax.profiler``.
@@ -29,12 +34,13 @@ import torch
 from codenerf_tpu_torch.config import Config
 from codenerf_tpu_torch.data import PrefetchIterator
 from codenerf_tpu_torch.harness import Harness, validate
+from codenerf_tpu_torch.parallel.mesh import barrier
 from codenerf_tpu_torch.train import checkpoint
 from codenerf_tpu_torch.train.optim import lr_at_step
-from codenerf_tpu_torch.train.state import init_train_state
+from codenerf_tpu_torch.train.state import (broadcast_train_state,
+                                            init_train_state)
 from codenerf_tpu_torch.train.step import make_train_step
-from codenerf_tpu_torch.utils.logging import (MetricLogger, is_main_process,
-                                              process_index)
+from codenerf_tpu_torch.utils.logging import MetricLogger, is_main_process
 
 
 def _start_profiler(device: torch.device):
@@ -68,7 +74,7 @@ def run_training(cfg: Config, max_steps: Optional[int] = None,
     dev = harness.device
     logger = MetricLogger(harness.logdir)
 
-    seed = cfg.experiment.randomseed + 1 + process_index()
+    seed = cfg.experiment.randomseed + 1
     state = init_train_state(cfg, harness.settings,
                              harness.train_dataset.num_objects, seed=seed,
                              device=dev)
@@ -79,6 +85,7 @@ def run_training(cfg: Config, max_steps: Optional[int] = None,
         checkpoint.load_checkpoint(cfg.runtime.load_checkpoint, state)
     elif checkpoint.latest_step(ckpt_dir) is not None:
         checkpoint.restore_checkpoint(ckpt_dir, state)
+    broadcast_train_state(harness.world, state)
 
     train_step = make_train_step(
         harness.settings, state,
@@ -86,7 +93,7 @@ def run_training(cfg: Config, max_steps: Optional[int] = None,
         regularizer_lambda=cfg.experiment.regularizer_lambda,
         perturb=cfg.nerf.point_sampler.perturb,
         ray_chunks=cfg.runtime.ray_chunks,
-        use_checkify=cfg.runtime.checkify)
+        use_checkify=cfg.runtime.checkify, world=harness.world)
 
     # one step consumes a whole image batch, so the reference's dataloader
     # count is the step count (train.py:61-62)
@@ -177,4 +184,6 @@ def run_training(cfg: Config, max_steps: Optional[int] = None,
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
         logger.close()
+    # rank 0's last checkpoint is on disk before any rank goes on
+    barrier(harness.world)
     return metrics_out

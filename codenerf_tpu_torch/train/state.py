@@ -10,6 +10,7 @@ import torch
 
 from codenerf_tpu_torch.config import Config
 from codenerf_tpu_torch.models import CodeNeRFConfig, CodeTables, build_model
+from codenerf_tpu_torch.parallel.mesh import World, broadcast_
 from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train.optim import build_optimizer
 
@@ -56,3 +57,21 @@ def init_train_state(cfg: Config, settings: RenderSettings,
                             emb.texture_code_size, device, gen)
     optimizer, scheduler = build_optimizer(cfg.optimizer, models, tables)
     return TrainState(models, tables, optimizer, scheduler)
+
+
+def broadcast_train_state(world: Optional[World], state: TrainState) -> None:
+    """Make ``state`` on every rank of ``world`` rank 0's: every parameter,
+    every optimizer-state tensor and the step, in place (JAX's
+    ``replicated_sharding`` put after an init or a restore,
+    ``codenerf_tpu/train/loop.py:42-46``).  Every rank must hold a state
+    of the same structure, as the same init and the same checkpoint give
+    it."""
+    if world is None:
+        return
+    tensors = [p for m in state.modules().values() for p in m.parameters()]
+    for p in (p for g in state.optimizer.param_groups for p in g["params"]):
+        tensors += [v for _, v in sorted(state.optimizer.state.get(
+            p, {}).items()) if torch.is_tensor(v)]
+    step = torch.tensor([state.step], dtype=torch.int64)
+    broadcast_(world, tensors + [step])
+    state.step = int(step)

@@ -11,6 +11,16 @@ Ray selection runs on the device from a
 ``torch.Generator``.  The step returns its metrics as tensors, so it never
 waits for the device.
 
+With a ``world`` (``parallel.mesh``) the step is JAX's step on a mesh
+(``codenerf_tpu/train/step.py:119-137``): every rank draws the same
+global ray batch and render draws (``pipeline.draw_train_randoms``, in
+the order ``render_rays_train`` draws them), renders its slice of the
+ray axis (of each chunk under ``ray_chunks > 1``), backpropagates
+``sum((rgb - target)^2) / (R_global * 3)``, and one ``all_reduce_grads``
+sums the gradients.  The code regularizer's gradient is added after it
+on every rank, once, and the metrics are summed over the ranks, so
+every rank logs the global loss and takes the same update.
+
 ``use_checkify`` is the counterpart of the JAX step's
 ``checkify.float_checks`` (``codenerf_tpu/train/step.py:165-177``): after
 the backward the loss and every gradient, after the update every
@@ -28,7 +38,11 @@ import torch
 from codenerf_tpu_torch.core.geometry import ray_bundle, select_ray_indices
 from codenerf_tpu_torch.core.metrics import mse2psnr
 from codenerf_tpu_torch.models.codes import code_table_norms, lookup_codes
-from codenerf_tpu_torch.pipeline import RenderSettings, render_rays_train
+from codenerf_tpu_torch.parallel.mesh import (World, all_reduce_,
+                                              all_reduce_grads,
+                                              shard_chunked_rays, shard_rays)
+from codenerf_tpu_torch.pipeline import (RenderSettings, draw_train_randoms,
+                                         render_rays_train)
 from codenerf_tpu_torch.train.state import TrainState
 
 
@@ -95,16 +109,19 @@ def _check_finite(leaves: list) -> None:
 def make_train_step(settings: RenderSettings, state: TrainState,
                     num_random_rays: int, regularizer_lambda: float,
                     perturb: bool, ray_chunks: int = 1,
-                    use_checkify: bool = False) -> Callable:
-    """Build the train step over ``state``.
+                    use_checkify: bool = False,
+                    world: Optional[World] = None) -> Callable:
+    """Build the train step over ``state``, on this rank's share of the
+    rays of ``world`` (None: one device).
 
     Returned signature: ``train_step(directions, pose, pixels, object_ids,
     generator, inds=None, draws=None) -> StepMetrics``; it updates
     ``state`` in place (parameters, optimizer, scheduler, step).  ``inds``
-    and ``draws`` (a list of ``render_rays_train`` draws, one per chunk)
-    replace the generator's draws in tests.
+    and ``draws`` (a list of ``render_rays_train`` draws for the global
+    rays of each chunk) replace the generator's draws in tests.
     """
     models, tables = state.models, state.tables
+    params = [p for m in state.modules().values() for p in m.parameters()]
 
     def train_step(directions, pose, pixels, object_ids, generator,
                    inds=None, draws=None) -> StepMetrics:
@@ -117,22 +134,30 @@ def make_train_step(settings: RenderSettings, state: TrainState,
             raise ValueError(f"ray batch {R} not divisible by ray_chunks="
                              f"{ray_chunks}")
         rc = R // ray_chunks
-        ss_c = ss_f = torch.zeros((), device=ro.device)
+        ro, rd, target, ids = shard_chunked_rays(
+            world, *(a.reshape(ray_chunks, rc, *a.shape[1:])
+                     for a in (ro, rd, target, ids)))
+        ss = torch.zeros(2, device=ro.device)           # coarse, fine
         for i in range(ray_chunks):
-            sl = slice(i * rc, (i + 1) * rc)
+            d = (draws[i] if draws is not None else draw_train_randoms(
+                settings, rc, generator, perturb, settings.noise_std,
+                ro.dtype, ro.device))
             z_s = z_t = None
             if tables is not None:
-                z_s, z_t = lookup_codes(tables, ids[sl])
+                z_s, z_t = lookup_codes(tables, ids[i])
             out_c, out_f = render_rays_train(
-                models, settings, ro[sl], rd[sl], z_s, z_t, generator,
-                perturb, settings.noise_std,
-                None if draws is None else draws[i])
-            c = torch.sum((out_c.rgb - target[sl, :3]) ** 2)
-            f = torch.sum((out_f.rgb - target[sl, :3]) ** 2)
+                models, settings, ro[i], rd[i], z_s, z_t, None, perturb,
+                settings.noise_std,
+                {k: shard_rays(world, v) for k, v in d.items()})
+            c = torch.sum((out_c.rgb - target[i, :, :3]) ** 2)
+            f = torch.sum((out_f.rgb - target[i, :, :3]) ** 2)
             ((c + f) / (R * 3)).backward()
-            ss_c, ss_f = ss_c + c.detach(), ss_f + f.detach()
-        loss_c, loss_f = ss_c / (R * 3), ss_f / (R * 3)
-        # losses per reference train.py:103-108
+            ss = ss + torch.stack([c.detach(), f.detach()])
+        all_reduce_grads(world, params)
+        all_reduce_(world, [ss])
+        loss_c, loss_f = ss[0] / (R * 3), ss[1] / (R * 3)
+        # losses per reference train.py:103-108; the regularizer's
+        # gradient is added after the all-reduce, once on every rank
         if tables is not None and regularizer_lambda > 0:
             ns, nt = code_table_norms(tables)
             loss_e = regularizer_lambda * (ns + nt)

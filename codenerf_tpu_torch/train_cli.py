@@ -11,9 +11,15 @@ Every config in ``configs/`` runs: CodeNeRF on SRN, and vanilla NeRF
 
 The flags are ``train.py``'s, with ``--device`` (default ``cuda``; it
 raises without a card unless ``--device cpu`` is given) in place of
-``--platform``.  ``-g`` caps the devices as in ``train.py``; the port
-trains on one, so a cap above 1 raises until multi-GPU lands.
-``--distributed`` is a no-op, as in ``train.py``.  The overrides
+``--platform``.  ``-g N`` is the data-parallel world's size, as it caps
+``train.py``'s mesh: with N > 1 outside torchrun the CLI starts N ranks
+(``parallel.launch.spawn``: spawned processes, one per card on
+``cuda:0..N-1``, NCCL; or N gloo ranks under ``--device cpu``), each of
+which trains on its share of every ray batch; under torchrun
+(``torchrun --nproc-per-node N -m codenerf_tpu_torch.train_cli ...``)
+each process joins torchrun's group.  Rank 0 writes the checkpoints and
+the logs, and its metrics are returned.  ``--distributed`` is a no-op,
+as in ``train.py``.  The overrides
 ``runtime.int8_serving=true`` and ``runtime.int8_encode=true`` add the
 int8 serving render to each validation.  Checkpoints are
 ``<logdir>/<id>/checkpoints/<step>.ckpt`` in the reference's layout.
@@ -21,6 +27,7 @@ int8 serving render to each validation.  Checkpoints are
 
 import argparse
 import dataclasses
+import os
 
 
 def main(argv=None):
@@ -45,6 +52,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from codenerf_tpu_torch.config import load_config
+    from codenerf_tpu_torch.parallel import close_world, launch
     from codenerf_tpu_torch.train.loop import run_training
 
     cfg = load_config(args.config, overrides=args.overrides)
@@ -56,7 +64,29 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, runtime=dataclasses.replace(cfg.runtime,
                                              num_devices=args.gpus))
-    return run_training(cfg, max_steps=args.max_steps, device=args.device)
+    if args.gpus > 1 and "WORLD_SIZE" not in os.environ:
+        devices = launch.devices_for(args.gpus, args.device)
+        if devices[0].type == "cuda":
+            import torch
+            from codenerf_tpu_torch.device import resolve_device
+            resolve_device(devices[0])
+            if torch.cuda.device_count() < args.gpus:
+                raise RuntimeError(f"-g {args.gpus}: "
+                                   f"{torch.cuda.device_count()} CUDA "
+                                   "devices visible")
+        return launch.spawn(_train_rank, args.gpus, (cfg, args.max_steps),
+                            devices=devices)[0]
+    try:
+        return run_training(cfg, max_steps=args.max_steps,
+                            device=args.device)
+    finally:
+        close_world()
+
+
+def _train_rank(world, cfg, max_steps):
+    """One spawned rank of ``-g N``: ``run_training`` in ``world``."""
+    from codenerf_tpu_torch.train.loop import run_training
+    return run_training(cfg, max_steps=max_steps, device=world.device)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,11 @@ import torch
 
 
 def process_index() -> int:
-    """This process's rank: ``torch.distributed``'s when initialised."""
+    """This process's rank: ``torch.distributed``'s when initialised, else
+    0.  It decides only who writes (the console, ``metrics.jsonl``,
+    checkpoints).  It seeds nothing: every rank of a world draws from the
+    same seeds, as every device of JAX's one-host mesh does (JAX's
+    ``process_index`` is the host, not the device)."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()

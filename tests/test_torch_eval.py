@@ -337,5 +337,8 @@ def test_eval_cli_defaults_to_cuda_and_refuses_multihost(synth_root,
         synth_root, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_cli.main(argv)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # --multihost joins torchrun's group, and refuses to run without it
+    for name in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         eval_cli.main(argv + ["--device", "cpu", "--multihost"])

@@ -63,6 +63,9 @@ assert {"codenerf_tpu_torch.config.schema",
         "codenerf_tpu_torch.eval.capacity"} <= set(names)
 assert {"codenerf_tpu_torch.data.blender",
         "codenerf_tpu_torch.data.llff"} <= set(names)
+# data parallelism: the world, its collectives and the ranks' launcher
+assert {"codenerf_tpu_torch.parallel", "codenerf_tpu_torch.parallel.mesh",
+        "codenerf_tpu_torch.parallel.launch"} <= set(names)
 # int8 serving: the module imports, and its primitive runs, without jax
 assert "codenerf_tpu_torch.models.quantized" in names
 import torch
@@ -94,6 +97,19 @@ print("isolated ok", len(names))
 '''
 
 
+# what a rank spawned by ``parallel.launch.spawn`` imports: its entry
+# module, the train CLI's rank function and the world it joins
+RANK_ENTRY = ISOLATED.split("import codenerf_tpu_torch\n")[0] + r'''
+import codenerf_tpu_torch.parallel.launch as launch
+from codenerf_tpu_torch import train_cli
+assert callable(launch._rank_main) and callable(train_cli._train_rank)
+assert launch.mesh.init_world(0) is None
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("rank entry ok")
+'''
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -107,6 +123,17 @@ def test_port_and_smoke_import_without_jax_yaml_triton():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
+
+
+def test_spawned_rank_entry_imports_without_jax_yaml_triton():
+    env = _env()
+    for name in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    out = subprocess.run([sys.executable, "-c", RANK_ENTRY], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "rank entry ok" in out.stdout
 
 
 def _leaves(d, prefix=()):

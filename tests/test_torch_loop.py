@@ -207,9 +207,10 @@ def test_ssim_matches_jax(shape):
 
 
 def test_harness_refusals(synth_root, tmp_path):
+    # two devices need two ranks, started by train_cli -g 2 or torchrun
     cfg = load_config(BASE, _overrides(synth_root, tmp_path)
                       + ["runtime.num_devices=2"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="start 2 ranks"):
         Harness.from_config(cfg, device="cpu")
     # int8 serving is ported: the harness takes it
     cfg = load_config(BASE, _overrides(synth_root, tmp_path)
@@ -237,8 +238,14 @@ def test_cli_defaults_to_cuda_and_refuses_devices(synth_root, tmp_path,
     argv = ["-c", str(BASE)] + _overrides(synth_root, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(argv)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train_cli.main(argv + ["--device", "cpu", "-g", "2"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(argv + ["-g", "2"])
+    # -g 2 on the card takes two cards, one rank each
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="-g 2: 1 CUDA devices visible"):
+        train_cli.main(argv + ["-g", "2"])
 
 
 def test_loss_tracks_the_jax_loop(synth_root, tmp_path):

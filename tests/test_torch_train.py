@@ -54,7 +54,8 @@ from codenerf_tpu_torch.models.mlp import LAYER_NAMES
 from codenerf_tpu_torch.ops.sampling import (base_z_vals, sample_pdf,
                                              sample_stratified)
 from codenerf_tpu_torch.ops.volume_render import volume_render
-from codenerf_tpu_torch.pipeline import RenderSettings, render_rays_train
+from codenerf_tpu_torch.pipeline import (RenderSettings, draw_train_randoms,
+                                         render_rays_train)
 from codenerf_tpu_torch.train import (gather_ray_batch, init_train_state,
                                       make_train_step)
 from codenerf_tpu_torch.weights import codes_from_jax, params_from_jax
@@ -146,15 +147,18 @@ def test_sample_pdf_jitter_matches_jax():
 
 
 def test_jitter_draws_from_the_generator():
+    ps = RenderSettings.from_config(config_from_dict(_cfg_dict("float32")))
     ro = torch.zeros(5, 3)
     rd = torch.ones(5, 3)
-    z = base_z_vals(8, 0.8, 1.8, "lindepth")
+    z = base_z_vals(ps.num_coarse, 0.8, 1.8, "lindepth")
     lower = torch.cat([z[:1], 0.5 * (z[1:] + z[:-1])])
-    a = sample_stratified(ro, rd, z, True, torch.Generator().manual_seed(0))
-    b = sample_stratified(ro, rd, z, True, torch.Generator().manual_seed(0))
+    a, b = (sample_stratified(ro, rd, z, True, draw_train_randoms(
+        ps, 5, torch.Generator().manual_seed(0))["t_rand"]) for _ in "ab")
     assert torch.equal(a[1], b[1]) and not a[1].requires_grad
     assert bool((a[1] >= lower).all()) and not torch.equal(a[1][0], z)
     with pytest.raises(ValueError, match="generator"):
+        draw_train_randoms(ps, 5, None)
+    with pytest.raises(ValueError, match="t_rand"):
         sample_stratified(ro, rd, z, True)
 
 
