@@ -94,10 +94,10 @@ with the committed trained weights:
                (xi starts at 0, every loss finite).
   8. cli     — the train entry point: an SRN-layout tree (8 train
                objects x 5 views, 2 val x 6, 128x128) the seeded teacher
-               renders through K1, written as PNGs by a zlib writer here
-               that filters rows as adaptive encoders do (mostly Paeth
-               and Up) and read back equal, and timed, by
-               ``data.png.read_png``; leg 1
+               renders through K1, written as PNGs by
+               ``data.png.write_png``, which filters rows as adaptive
+               encoders do (mostly Paeth and Up), and read back equal, and
+               timed, by ``data.png.read_png``; leg 1
                ``train.loop.run_training`` of ``configs/srn-cars-code.yml``
                (read by ``yaml_lite``: no PyYAML here) at its full widths
                for 10 steps with ``runtime.use_pallas`` and
@@ -142,9 +142,9 @@ with the committed trained weights:
                factor for ``eval/capacity.py`` (the slope of
                ``max_memory_allocated`` over one batched TTO step at K = 1
                and K = 2 of the flagship shape); then the v4 lineage's val
-               split regenerated by ``tools/make_synth_data.py`` with its
-               arguments (an ``imageio`` stand-in writing through
-               ``png_bytes``) beside an empty train split, and ``python3 -m
+               split regenerated with its arguments by the port's generator
+               (``python3 -m codenerf_tpu_torch.tools.make_synth_data``)
+               beside an empty train split, and ``python3 -m
                codenerf_tpu_torch.eval_cli --all-objects --batch-objects 4``
                in a subprocess (yaml and imageio unimportable) on the
                committed ``fixtures/flagship-v4-cars-42100.ckpt`` with the
@@ -161,6 +161,27 @@ with the committed trained weights:
                8 finite int8 rows, the int8 mean PSNR >= the full-precision
                mean - 1 dB (RESULTS.md's TPU A/B: -0.28 dB on the cars
                category mean).
+  9b. tools  — the port's tools (``codenerf_tpu_torch/tools/``), each in
+               a subprocess with yaml, imageio and PIL unimportable (the
+               five processes run together), on the
+               eval phase's split and committed checkpoint and the cli
+               phase's tree and checkpoint: (a) the native SRN loader
+               (``data/native.py``) built here by g++, the path the cli
+               phase's training took (``native.status()``: native), every
+               train view of the cli tree bit-identical to the
+               ``read_png`` path, ms per image of both; (b)
+               ``render_views`` of object 3, 4 turntable views through K1
+               (8 launches a view) and 2 through ``--int8``, read back,
+               view 0 against the same view through the plain trunk in
+               this process (40 dB), the int8 views' PSNR against full
+               precision; (c) ``phi_sweep`` of val object 0 at a cut
+               protocol (50 TTO steps, 2 restarts, a 20-step flip, 36
+               azimuths; K1 and K2 launched, a finite profile, the
+               verdict); (d) ``diag_fine`` of the cli checkpoint's train
+               view 0 through K1 (finite PSNRs, 3 PNGs); (e)
+               ``gpu_selftest`` of every family (exit 0, each family's
+               error and gate); (f) the sha256 of the eval split's decoded
+               pixels beside the JAX-era tool's on a CPU machine.
  10. vanilla — vanilla NeRF (FlexibleNeRF) at the full widths of
                ``configs/lego.yml``, ``fern.yml`` and ``srn-cars.yml``, K4
                under ``pallas_layer_bwd``: K4 against its plain version at
@@ -189,8 +210,9 @@ with the committed trained weights:
                precision, gated card against CPU (40 dB) from the same
                buffers on a 16x16 / 32x24 image.
  11. result  — the kernel table as one JSON line (with each kernel's
-               launches per TTO step, in the cli legs, in the eval and in
-               the vanilla steps), the card line, and the last line
+               launches per TTO step, in the cli legs, in the eval, in
+               each tool and in the vanilla steps), the card line, and the
+               last line
                ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Any failure
@@ -205,18 +227,16 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-import inspect
+import hashlib
 import json
 import os
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
 import types
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -225,7 +245,8 @@ import torch
 
 from codenerf_tpu_torch.config import (SRN_CARS_CODE, config_from_dict,
                                        load_config, yaml_lite)
-from codenerf_tpu_torch.data import BatchIterator, SRNDataset, read_png
+from codenerf_tpu_torch.data import (BatchIterator, SRNDataset, native,
+                                     read_png, write_png)
 from codenerf_tpu_torch.core import (mse2psnr, pixel_directions,
                                      pose_spherical, ssim)
 from codenerf_tpu_torch.eval import (
@@ -236,7 +257,8 @@ from codenerf_tpu_torch.eval import (
     make_se3_refine_step, make_tto_step)
 from codenerf_tpu_torch.models import (CodeNeRF, CodeNeRFConfig, CodeTables,
                                        build_model, lookup_codes)
-from codenerf_tpu_torch.ops import _build, fused, layer_bwd, plan
+from codenerf_tpu_torch.ops import (_build, fused, layer_bwd, plain_versions,
+                                    plan)
 from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           kernel_weights, per_ray_parts,
                                           trunk_backward,
@@ -274,23 +296,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Rebind the kernels' wrappers to their plain versions, so that the
-    port's own entry points run the same path on the card without the
-    kernels."""
-    saved = (fused.trunk_forward, fused.trunk_backward,
-             layer_bwd.linear_relu_bwd)
-    fused.trunk_forward = fused.trunk_forward_plain
-    fused.trunk_backward = fused.trunk_backward_plain
-    layer_bwd.linear_relu_bwd = linear_relu_bwd_plain
-    try:
-        yield
-    finally:
-        (fused.trunk_forward, fused.trunk_backward,
-         layer_bwd.linear_relu_bwd) = saved
 
 
 def launch_counts() -> dict:
@@ -1612,41 +1617,7 @@ CLI_RUNNER = ("import json, runpy, sys, torch; "
               "print('loaded ' + json.dumps(sorted("
               "m for m, v in sys.modules.items() if v is not None and "
               f"m.split('.')[0] in {REFUSED!r})))")
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 OPENGL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
-
-
-def png_bytes(img: np.ndarray) -> tuple:
-    """uint8 [H, W, 3] (or [H, W, 4]) as an RGB (RGBA) PNG, written with
-    the standard library's zlib, and the filter of each row.  Rows are
-    filtered as an adaptive encoder (libpng's, PIL's) filters them: each
-    takes the one of the five filters whose bytes, read as signed, have
-    the least sum of absolute values."""
-    h, w, c = img.shape
-    x = img.astype(np.int16).reshape(h, w * c)
-    a = np.pad(x, ((0, 0), (c, 0)))[:, :-c]               # left
-    b = np.pad(x, ((1, 0), (0, 0)))[:-1]                  # up
-    ul = np.pad(b, ((0, 0), (c, 0)))[:, :-c]              # up-left
-    p = a + b - ul
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
-    paeth = np.where((pa <= pb) & (pa <= pc), a,
-                     np.where(pb <= pc, b, ul))
-    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
-    filtered = ((x - pred) % 256).astype(np.uint8)        # [5, h, w * c]
-    cost = np.abs(filtered.view(np.int8).astype(np.int32)).sum(-1)
-    kinds = cost.argmin(0)
-    rows = np.concatenate([kinds[:, None].astype(np.uint8),
-                           filtered[kinds, np.arange(h)]], 1)
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    return (PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                         6 if c == 4 else 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + chunk(b"IEND", b"")), kinds
 
 
 def make_srn_tree(root: Path, size, dirs, teacher, tables) -> dict:
@@ -1683,8 +1654,7 @@ def make_srn_tree(root: Path, size, dirs, teacher, tables) -> dict:
                 u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8).reshape(
                     size, size, 3).cpu().numpy()
                 path = d / "rgb" / f"{v:06d}.png"
-                data, kinds = png_bytes(u8)
-                path.write_bytes(data)
+                kinds = write_png(path, u8)
                 filters += np.bincount(kinds, minlength=5)
                 t_read = time.perf_counter()
                 back = read_png(path)
@@ -1738,7 +1708,8 @@ def cli_tables() -> CodeTables:
                       torch.Generator(device="cpu").manual_seed(SEED + 11))
 
 
-def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
+def cli_phase(size, dirs, teacher, fused_ms, card, then=None,
+              keep=False) -> dict:
     """The train entry point on the card (phase 8): an SRN tree made on
     the card, ``run_training`` of the flagship YAML at its full widths for
     ``CLI_STEPS`` steps with K1 and K2 (``use_pallas`` +
@@ -1746,7 +1717,9 @@ def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
     restored bit-identically, and the train CLI in a subprocess resuming
     it to step 20.  ``fused_ms`` is the train phase's fused step, printed
     beside the CLI's.  ``then(root, work)``, if given, runs on the SRN
-    tree before it is removed; its result is under "then"."""
+    tree before it is removed; its result is under "then".  With ``keep``
+    the tree and the checkpoints stay (under "work", "root", "ckpt"), and
+    the caller removes "work"."""
     tables = cli_tables()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     try:
@@ -1955,9 +1928,12 @@ def cli_phase(size, dirs, teacher, fused_ms, card, then=None) -> dict:
                 | {s: leg2[s]["nerf_loss_fine"] for s in (15, 20)},
                 "train_launches": train_launches,
                 "val_launches": val["launches"], "leg1_s": leg1_s,
-                "leg2_s": leg2_s, "images": tree["images"], "then": after}
+                "leg2_s": leg2_s, "images": tree["images"], "then": after,
+                **({"work": work, "root": root, "ckpt": ckdir} if keep
+                   else {})}
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if not keep or sys.exc_info()[0] is not None:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 # the int8 serving path (models/quantized.py): its products are
@@ -2198,23 +2174,6 @@ EVAL_RUNNER = (
     f"m.split('.')[0] in {REFUSED!r})}}))")
 
 
-def imageio_standin(root: Path) -> Path:
-    """An ``imageio`` package under ``root`` whose ``v2.imwrite`` writes
-    uint8 RGB images through ``png_bytes``, for ``tools/make_synth_data.py``
-    on a machine without imageio."""
-    pkg = root / "imageio"
-    pkg.mkdir(parents=True)
-    (pkg / "__init__.py").write_text("")
-    (pkg / "v2.py").write_text(
-        "import struct\nimport zlib\n\nimport numpy as np\n\n"
-        f"PNG_SIGNATURE = {PNG_SIGNATURE!r}\n\n\n"
-        + inspect.getsource(png_bytes)
-        + "\n\ndef imwrite(path, img):\n"
-          "    with open(path, 'wb') as f:\n"
-          "        f.write(png_bytes(np.asarray(img, np.uint8))[0])\n")
-    return root
-
-
 def capacity_factors(models, tables, dirs, card) -> dict:
     """The activation factor of each trunk path (``eval/capacity.py``):
     the peak of ``torch.cuda.max_memory_allocated`` over one batched TTO
@@ -2259,29 +2218,28 @@ def capacity_factors(models, tables, dirs, card) -> dict:
     return out
 
 
-def eval_phase(models, tables, dirs, card) -> dict:
+def eval_phase(models, tables, dirs, card, keep=False) -> dict:
     """The eval entry point on the card (phase 9): the capacity factors,
-    then the v4 val split regenerated by ``tools/make_synth_data.py``
-    (imageio stood in for by ``png_bytes``) beside an empty train split,
-    and ``python3 -m codenerf_tpu_torch.eval_cli --all-objects`` on it
-    with the committed checkpoint, the campaign's protocol and K1 + K2
-    (``use_pallas`` + ``pallas_backward``), and ``runtime.int8_serving``:
-    each object's image also through the int8 serving path; gated on 8
-    finite rows (int8 columns too), K1 and K2 launched, the category mean
-    PSNR, and the int8 mean within ``EVAL_INT8_DROP_DB`` of it."""
+    then the v4 val split regenerated by the port's generator
+    (``python3 -m codenerf_tpu_torch.tools.make_synth_data``) beside an
+    empty train split, and ``python3 -m codenerf_tpu_torch.eval_cli
+    --all-objects`` on it with the committed checkpoint, the campaign's
+    protocol and K1 + K2 (``use_pallas`` + ``pallas_backward``), and
+    ``runtime.int8_serving``: each object's image also through the int8
+    serving path; gated on 8 finite rows (int8 columns too), K1 and K2
+    launched, the category mean PSNR, and the int8 mean within
+    ``EVAL_INT8_DROP_DB`` of it.  With ``keep`` the split is left in place
+    for the tools phase (under "work", "data"), and the caller removes
+    "work"."""
     cap = capacity_factors(models, tables, dirs, card)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
     try:
         data = work / "srn_cars"
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [str(imageio_standin(work / "standin"))]
-            + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "tools/make_synth_data.py", "--out", str(data),
-             *EVAL_DATA], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=600)
+            [sys.executable, "-m", "codenerf_tpu_torch.tools.make_synth_data",
+             "--out", str(data), *EVAL_DATA], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"make_synth_data exited {proc.returncode}:\n"
                                f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
@@ -2291,9 +2249,9 @@ def eval_phase(models, tables, dirs, card) -> dict:
         (data / "cars_train").mkdir()
         n_png = len(list((data / "cars_val").glob("*/rgb/*.png")))
         gen_s = time.perf_counter() - t0
-        print(f"eval: v4 val split regenerated (tools/make_synth_data.py "
-              f"{' '.join(EVAL_DATA)}) in {gen_s:.4g} s: {n_png} PNGs",
-              flush=True)
+        print(f"eval: v4 val split regenerated (python3 -m "
+              f"codenerf_tpu_torch.tools.make_synth_data {' '.join(EVAL_DATA)}"
+              f") in {gen_s:.4g} s: {n_png} PNGs", flush=True)
         overrides = [f"dataset.basedir={data}", f"experiment.logdir={work}",
                      *EVAL_OVERRIDES]
         cmd = [sys.executable, "-c", EVAL_RUNNER, "-c", CLI_YAML,
@@ -2381,9 +2339,251 @@ def eval_phase(models, tables, dirs, card) -> dict:
         return {"summary": summary, "launches": launches, "capacity": cap,
                 "int_mm": res["int_mm"], "int8_drop_db": drop,
                 "steps_per_group": steps, "tto_steps_per_s": steps_per_s,
-                "cli_s": wall_s, "data_s": gen_s, "jax": JAX_CATEGORY}
+                "cli_s": wall_s, "data_s": gen_s, "jax": JAX_CATEGORY,
+                **({"work": work, "data": data} if keep else {})}
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if not keep or sys.exc_info()[0] is not None:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+# the tools phase: the port's tools (codenerf_tpu_torch/tools/) on the eval
+# phase's split and the committed checkpoint, and on the cli phase's tree
+# and checkpoint, each in a subprocess with yaml, imageio and PIL
+# unimportable; its last line holds the tool's return value, the launch
+# counts of its process and the modules of TOOL_REFUSED that were loaded
+TOOL_REFUSED = REFUSED + ("PIL",)
+TOOL_RUNNER = (
+    "import importlib, json, sys; "
+    "sys.modules.update(dict.fromkeys(('yaml', 'imageio', 'PIL'))); "
+    "tool = importlib.import_module('codenerf_tpu_torch.tools.' "
+    "+ sys.argv[1]); "
+    "from codenerf_tpu_torch.ops.fused import trunk_forward, trunk_backward; "
+    "from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd; "
+    "from codenerf_tpu_torch.models.quantized import _qdot; "
+    "out = tool.main(sys.argv[2:]); "
+    "print('result ' + json.dumps({'out': out, 'launches': {"
+    "'K1': trunk_forward.launches, "
+    "'K2': trunk_backward.launches_recompute, "
+    "'K3': trunk_backward.launches_stored, "
+    "'K4': linear_relu_bwd.launches}, 'int_mm': _qdot.calls, "
+    "'loaded': sorted(m for m, v in sys.modules.items() if v is not None "
+    f"and m.split('.')[0] in {TOOL_REFUSED!r})}}, default=lambda o: "
+    "o.tolist() if getattr(o, 'size', 1 << 30) <= 4096 "
+    "else repr(getattr(o, 'shape', type(o))))); "
+    "sys.exit(out if isinstance(out, int) else 0)")
+TOOL_TIMEOUT = 300
+# render_views: the committed checkpoint's object 3, turntable views
+RV_OBJECT = 3
+RV_VIEWS, RV_INT8_VIEWS = 4, 2
+# phi_sweep's cut protocol on one val object
+PHI_OBJECT = 0
+PHI_SWEEP = 36
+PHI_OVERRIDES = ("experiment.val_iterations=50", "optimizer.pose_restarts=2",
+                 "optimizer.pose_flip_steps=20", "runtime.use_pallas=true",
+                 "runtime.pallas_backward=true")
+# the v4 val split's decoded pixels (split_sha256) as tools/
+# make_synth_data.py with imageio wrote them on a CPU machine (numpy 2.0.2)
+EVAL_SPLIT_SHA256_CPU = ("a0bda810b7f5e73c3b9ef9f0a0b69200"
+                         "e03642569a507a0131a5dd7b9b7a0e9c")
+
+
+def run_tool(name: str, args) -> dict:
+    """``python3 -m codenerf_tpu_torch.tools.<name> args`` through
+    ``TOOL_RUNNER``: its result, the launches its process counted, its
+    printed lines and wall seconds; raises unless it exits 0 having loaded
+    none of ``TOOL_REFUSED``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TOOL_RUNNER, name,
+                           *map(str, args)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=TOOL_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"tools.{name} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    res = json.loads(lines[-1][len("result "):])
+    if res["loaded"]:
+        raise RuntimeError(f"tools.{name} loaded {res['loaded']}")
+    return {**res, "lines": lines[:-1], "seconds": seconds}
+
+
+def split_sha256(root: Path) -> str:
+    """sha256 of an SRN tree's decoded val pixels, each PNG's path under
+    ``root`` then its pixels, in sorted path order."""
+    h = hashlib.sha256()
+    for path in sorted(root.glob("cars_val/*/rgb/*.png")):
+        h.update(str(path.relative_to(root)).encode())
+        h.update(read_png(path).tobytes())
+    return h.hexdigest()
+
+
+def native_loader(root: Path, card) -> dict:
+    """(a) The native SRN loader (``data/native.py``): built on this host,
+    the path ``SRNDataset.load_views`` took in the cli phase's training
+    (``native.status()``), and a batch of every train view of the cli tree
+    bit-identical to the ``read_png`` path, with ms per image of each."""
+    from codenerf_tpu_torch.ops import _build
+    built = _build.build_host(native.SOURCE, native.LIBS)
+    status = native.status()
+    if status["path"] != "native" or not status["batches"]["native"]:
+        raise RuntimeError(f"tools (a): the native loader did not serve the "
+                           f"cli phase's training: {status}")
+    fast = SRNDataset(str(root), "train")
+    slow = SRNDataset(str(root), "train", use_native=False)
+    idx = list(range(len(fast)))
+    ms = {}
+    for name, ds in (("native", fast), ("read_png", slow)):
+        ds.load_views(idx[:1])                               # warm-up
+        t0 = time.perf_counter()
+        batch = ds.load_views(idx)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(idx)
+        ms[f"{name}_batch"] = batch
+    a, b = ms.pop("native_batch"), ms.pop("read_png_batch")
+    differ = [k for k in b if a[k].dtype != b[k].dtype
+              or not np.array_equal(a[k], b[k])]
+    if list(a) != list(b) or differ:
+        raise RuntimeError(f"tools (a): native batch differs from the "
+                           f"read_png path in {differ or list(a)}")
+    h, w, c = native.probe(fast.rgb_files[0][1])
+    print(f"tools (a) native loader: {Path(built['path']).name} "
+          f"(g++ -O3, zlib), served {status['batches']['native']} batches of "
+          f"the cli phase's training; {len(idx)} views ({h}x{w}x{c} files, "
+          f"cropped to {a['color'].shape[1]}x{a['color'].shape[2]}) "
+          f"bit-identical to the read_png path: {ms['native']:.6g} ms per "
+          f"image native (8 threads), {ms['read_png']:.6g} ms read_png on "
+          f"{card}", flush=True)
+    return {"library": Path(built["path"]).name, "status": status,
+            "views": len(idx), "file_hwc": [h, w, c], **ms}
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2)) / 255.0 ** 2
+    return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
+
+
+def tools_phase(cli_root: Path, cli_ckpt: Path, data: Path, work: Path,
+                card) -> dict:
+    """The port's tools on the card (phase 9b): (a) the native loader on
+    the cli tree, (b) ``render_views`` of the committed checkpoint (4
+    turntable views through K1, 2 through ``--int8``; view 0 against the
+    same view through the plain trunk, 40 dB), (c) ``phi_sweep`` of one val
+    object at a cut protocol (K1 and K2 launched, a finite profile), (d)
+    ``diag_fine`` of the cli checkpoint's train view 0 (finite PSNRs, K1
+    launched), (e) ``gpu_selftest`` of every family (exit 0), (f) the
+    sha256 of the eval split's decoded pixels.  The tools' five processes
+    run together."""
+    from codenerf_tpu_torch.tools import render_views
+    out = {"native": native_loader(cli_root, card)}
+
+    ckpt_args = ["-c", CLI_YAML, "--load-checkpoint", EVAL_CKPT,
+                 "--num-objects", "400"]
+    rv_args = [*ckpt_args, "--object-id", RV_OBJECT, "--turntable"]
+    rv_over = [f"dataset.basedir={data}", f"experiment.logdir={work}",
+               "runtime.use_pallas=true"]
+    # the tools' processes run together: each is mostly start-up on the
+    # host, and none is timed here
+    runs = {
+        "k1": ("render_views", [*rv_args, "--num-views", RV_VIEWS, "--out",
+                                work / "views", *rv_over]),
+        "int8": ("render_views", [*rv_args, "--num-views", RV_INT8_VIEWS,
+                                  "--int8", "--out", work / "views_int8",
+                                  *rv_over]),
+        "phi": ("phi_sweep", [*ckpt_args, "--objects", PHI_OBJECT,
+                              "--sweep", PHI_SWEEP, f"dataset.basedir={data}",
+                              f"experiment.logdir={work}", *PHI_OVERRIDES]),
+        "diag": ("diag_fine", ["-c", CLI_YAML, "--load-checkpoint", cli_ckpt,
+                               "--out", work / "diag",
+                               f"dataset.basedir={cli_root}",
+                               f"experiment.logdir={work}",
+                               "runtime.use_pallas=true"]),
+        "selftest": ("gpu_selftest", []),
+    }
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {k: pool.submit(run_tool, *v) for k, v in runs.items()}
+        res = {k: f.result() for k, f in futures.items()}
+    k1, q = res["k1"], res["int8"]
+    views = [read_png(p) for p in sorted((work / "views").glob("*.png"))]
+    views_q = [read_png(p) for p in sorted((work / "views_int8").glob(
+        "*.png"))]
+    with plain_versions():
+        plain = render_views.main(list(map(str, [
+            *rv_args, "--num-views", 1, "--out", work / "views_plain",
+            *rv_over])))
+    side = views[0].shape[0] if views else 0
+    chunk = load_config(ROOT / CLI_YAML).nerf.validation.chunksize
+    chunks = -(-side * side // chunk)
+    psnr_plain = psnr_u8(views[0], plain["images"][0])
+    # int8 view i is the turntable angle of full-precision view 2 i
+    step = RV_VIEWS // RV_INT8_VIEWS
+    psnr_q = [psnr_u8(v, views[step * i]) for i, v in enumerate(views_q)]
+    print(f"tools (b) render_views: object {RV_OBJECT} of {EVAL_CKPT}, "
+          f"{len(views)} turntable views of {side}x{side} through K1 "
+          f"({k1['launches']['K1']} launches, {k1['seconds']:.4g} s) and "
+          f"{len(views_q)} through --int8 ({q['int_mm']} _int_mm calls, "
+          f"{q['seconds']:.4g} s); view 0 against the plain trunk "
+          f"{psnr_plain:.6g} dB; int8 views against full precision "
+          f"{', '.join(f'{p:.6g}' for p in psnr_q)} dB on {card}",
+          flush=True)
+    if (len(views) != RV_VIEWS or len(views_q) != RV_INT8_VIEWS
+            or any(v.shape != (side, side, 3) for v in views + views_q)
+            or k1["launches"]["K1"] != 2 * chunks * RV_VIEWS
+            or not q["int_mm"] > 0):
+        raise RuntimeError(f"tools (b): {len(views)} + {len(views_q)} views, "
+                           f"K1 {k1['launches']}, _int_mm {q['int_mm']}")
+    if not psnr_plain >= PSNR_GATE:
+        raise RuntimeError(f"tools (b): K1 view against the plain trunk "
+                           f"{psnr_plain} dB < {PSNR_GATE}")
+    out["render_views"] = {"launches": k1["launches"],
+                           "int8_launches": q["launches"],
+                           "int_mm": q["int_mm"], "psnr_plain": psnr_plain,
+                           "psnr_int8": psnr_q, "seconds": k1["seconds"],
+                           "int8_seconds": q["seconds"]}
+
+    phi = res["phi"]
+    rec = phi["out"][0]
+    print(f"tools (c) phi_sweep: val object {PHI_OBJECT} ({', '.join(
+        PHI_OVERRIDES)}, --sweep {PHI_SWEEP}) in {phi['seconds']:.4g} s: "
+          f"pose error {rec['pose_error']:.6g} rad, separation "
+          f"{rec['separation']:.6g} rad, minima {rec['minima']}, ratio "
+          f"rec/GT {rec['ratio']:.6g} ({rec['verdict']}); launches "
+          f"{phi['launches']} on {card}", flush=True)
+    if (len(rec["losses"]) != PHI_SWEEP or not finite(rec["losses"])
+            or not (phi["launches"]["K1"] > 0 and phi["launches"]["K2"] > 0)):
+        raise RuntimeError(f"tools (c): {len(rec['losses'])} losses, finite "
+                           f"{finite(rec['losses'])}, {phi['launches']}")
+    out["phi_sweep"] = {k: rec[k] for k in ("pose_error", "separation",
+                                            "ratio", "verdict")} | {
+        "launches": phi["launches"], "seconds": phi["seconds"]}
+
+    diag = res["diag"]
+    d = diag["out"]
+    print(f"tools (d) diag_fine: cli checkpoint step {d['step']}, train view "
+          f"0: coarse PSNR {d['psnr_coarse']:.6g}, fine {d['psnr_fine']:.6g}"
+          f" dB, acc {d['acc_coarse_mean']:.4g} / {d['acc_fine_mean']:.4g}; "
+          f"launches {diag['launches']} in {diag['seconds']:.4g} s",
+          flush=True)
+    if (not finite([d["psnr_coarse"], d["psnr_fine"]])
+            or not diag["launches"]["K1"] > 0
+            or len(list(work.glob("diag_*.png"))) != 3):
+        raise RuntimeError(f"tools (d): {d}, {diag['launches']}")
+    out["diag_fine"] = {**d, "launches": diag["launches"],
+                        "seconds": diag["seconds"]}
+
+    st = res["selftest"]
+    for line in st["lines"]:
+        print(f"tools (e) gpu_selftest | {line}", flush=True)
+    out["gpu_selftest"] = {"launches": st["launches"],
+                           "int_mm": st["int_mm"],
+                           "seconds": st["seconds"]}
+
+    sha = split_sha256(data)
+    print(f"tools (f) the eval's v4 val split written by the port's "
+          f"generator: sha256 of its decoded pixels {sha} (the JAX-era tool "
+          f"with imageio on a CPU machine: {EVAL_SPLIT_SHA256_CPU}, "
+          f"{'equal' if sha == EVAL_SPLIT_SHA256_CPU else 'different'})",
+          flush=True)
+    out["split_sha256"] = sha
+    return out
 
 
 # the vanilla phase: lego.yml (Blender), fern.yml (LLFF, NDC) and
@@ -2418,10 +2618,10 @@ def centred_dirs(h, w, focal):
     return pixel_directions(h, w, K)
 
 
-def write_png(path: Path, img: np.ndarray) -> None:
-    """``png_bytes`` of ``img`` to ``path``, read back equal by
+def write_checked_png(path: Path, img: np.ndarray) -> None:
+    """``img`` written to ``path`` by ``write_png``, read back equal by
     ``read_png``."""
-    path.write_bytes(png_bytes(img)[0])
+    write_png(path, img)
     if not np.array_equal(read_png(path), img):
         raise RuntimeError(f"read_png({path}) differs from the pixels "
                            "written")
@@ -2452,8 +2652,8 @@ def write_blender_tree(root: Path, settings, teacher) -> int:
             with torch.no_grad():
                 rgb = to_u8(render(teacher, dirs, pose, None, None), n, n)
             alpha = np.full((n, n, 1), 255, np.uint8)
-            write_png(root / stage / f"r_{v}.png",
-                      np.concatenate([rgb, alpha], -1))
+            write_checked_png(root / stage / f"r_{v}.png",
+                              np.concatenate([rgb, alpha], -1))
             frames.append({"file_path": f"./{stage}/r_{v}",
                            "transform_matrix": pose.cpu().tolist()})
             count += 1
@@ -2503,7 +2703,7 @@ def write_llff_tree(root: Path, cfg, seed) -> tuple:
         pose = torch.tensor(poses[v], dtype=torch.float32, device="cuda")
         with torch.no_grad():
             rgb = to_u8(render(teacher, dirs, pose, None, None), h, w)
-        write_png(root / "images_8" / f"img_{v:03d}.png", rgb)
+        write_checked_png(root / "images_8" / f"img_{v:03d}.png", rgb)
     return FERN_VIEWS, teacher, settings
 
 
@@ -3352,6 +3552,16 @@ def dist_launches(dist, name) -> dict:
                 r[name] for r in dist["b"]["cli_launches"]]}
 
 
+def tool_launches(tools: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in each tool's process."""
+    runs = {"render_views": tools["render_views"]["launches"],
+            "render_views_int8": tools["render_views"]["int8_launches"],
+            "phi_sweep": tools["phi_sweep"]["launches"],
+            "diag_fine": tools["diag_fine"]["launches"],
+            "gpu_selftest": tools["gpu_selftest"]["launches"]}
+    return {tool: launches[name] for tool, launches in runs.items()}
+
+
 def val_image(cfg) -> str:
     crop = cfg.dataset.image_size - 2 * (cfg.dataset.image_size // 8)
     return f"{crop}x{crop}"
@@ -3577,13 +3787,25 @@ def main():
                 "dist": dist_phase(size, dirs, models, root, work, card)}
 
     cli = cli_phase(size, dirs, models, train["fused"]["step_ms"], card,
-                    then=on_the_tree)
+                    then=on_the_tree, keep=True)
     dist = cli["then"].pop("dist")
     phase("cli", t0)
 
-    t0 = time.perf_counter()
-    ev = eval_phase(models, tables, dirs, card)
-    phase("eval", t0)
+    try:
+        t0 = time.perf_counter()
+        ev = eval_phase(models, tables, dirs, card, keep=True)
+        phase("eval", t0)
+        try:
+            t0 = time.perf_counter()
+            tools = tools_phase(cli["root"], cli["ckpt"], ev["data"],
+                                ev["work"], card)
+            phase("tools", t0)
+        finally:
+            shutil.rmtree(ev.pop("work"), ignore_errors=True)
+            ev.pop("data")
+    finally:
+        shutil.rmtree(cli.pop("work"), ignore_errors=True)
+        cli.pop("root"), cli.pop("ckpt")
 
     t0 = time.perf_counter()
     k4_vanilla = check_k4(K4_VANILLA_CASES, card, seed=SEED + 29)
@@ -3633,6 +3855,7 @@ def main():
         "cli_train_launches": cli["train_launches"]["K1"],
         "cli_val_launches": cli["val_launches"]["K1"],
         "eval_launches": ev["launches"]["K1"],
+        "tools_launches": tool_launches(tools, "K1"),
         "dist_launches_per_rank": dist_launches(dist, "K1"),
         "launches_per_tto_step": tto["fused"]["launches_per_step"]["K1"],
         "train_step_ms": step_k1["ms"],
@@ -3660,6 +3883,7 @@ def main():
             "cli_train_launches": cli["train_launches"][name],
             "cli_val_launches": cli["val_launches"][name],
             "eval_launches": ev["launches"][name],
+            "tools_launches": tool_launches(tools, name),
             "dist_launches_per_rank": dist_launches(dist, name),
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
             "rel_rms": max(r["rel_rms"] for r in bwd[name]),
@@ -3721,6 +3945,7 @@ def main():
                f"at R={n_step}; launches counted over {TRAIN_STEPS} steps",
         "shapes": k4 + k4_vanilla,
         "eval_launches": ev["launches"]["K4"],
+        "tools_launches": tool_launches(tools, "K4"),
         "widths": widths["K4"],
         "vanilla_launches": {
             "lego_per_step": vanilla["lego"]["layer_bwd"][
@@ -3755,6 +3980,7 @@ def main():
                       | {"summary": {k: v for k, v in ev["summary"].items()
                                      if k != "per_object"}}}), flush=True)
     print(json.dumps({"dist": dist}), flush=True)
+    print(json.dumps({"tools": tools}, default=str), flush=True)
     for name, results in (("train", train), ("tto", tto)):
         print(json.dumps({name: {m: {k: v for k, v in r.items()
                                      if k != "profile"}

@@ -5,7 +5,7 @@ iterator."""
 
 from codenerf_tpu_torch.data.loader import (  # noqa: F401
     BatchIterator, PrefetchIterator, build_dataset)
-from codenerf_tpu_torch.data.png import read_png  # noqa: F401
+from codenerf_tpu_torch.data.png import read_png, write_png  # noqa: F401
 from codenerf_tpu_torch.data.srn import SRNDataset  # noqa: F401
 from codenerf_tpu_torch.data.blender import BlenderNeRFDataset  # noqa: F401
 from codenerf_tpu_torch.data.llff import LLFFDataset  # noqa: F401

@@ -1,11 +1,12 @@
-"""A PNG decoder on the standard library's ``zlib`` and numpy.
+"""A PNG decoder and encoder on the standard library's ``zlib`` and numpy.
 
-It stands in for imageio, which the JAX package's loader uses
-(``codenerf_tpu/data/srn.py``) and the card's machine lacks.  It reads
-the PNGs datasets are made of: non-interlaced, 8 bits per sample,
-greyscale, RGB or RGBA, with any of the five row filters.  Every other
-format, a bad chunk CRC and a short or corrupt stream raise
-``ValueError``.
+They stand in for imageio, which the JAX package's loader and tools use
+(``codenerf_tpu/data/srn.py``, ``tools/make_synth_data.py``) and the
+card's machine lacks.  ``read_png`` reads the PNGs datasets are made of:
+non-interlaced, 8 bits per sample, greyscale, RGB or RGBA, with any of
+the five row filters.  Every other format, a bad chunk CRC and a short
+or corrupt stream raise ``ValueError``.  ``write_png`` writes that
+format, each row filtered as adaptive encoders filter it.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from pathlib import Path
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> channels
+# colour type -> channels, and back
 _CHANNELS = {0: 1, 2: 3, 6: 4}
+_COLOUR = {c: t for t, c in _CHANNELS.items()}
 
 
 def _chunks(data: bytes, path):
@@ -136,3 +138,52 @@ def read_png(path) -> np.ndarray:
     channels = _CHANNELS[colour]
     img = _unfilter(raw, height, width, channels, path)
     return img.reshape(height, width, channels)
+
+
+def encode_png(img: np.ndarray) -> tuple:
+    """uint8 [H, W] or [H, W, 1] (greyscale), [H, W, 3] (RGB) or
+    [H, W, 4] (RGBA) as PNG bytes, and the filter of each row.  Rows are
+    filtered as an adaptive encoder (libpng's, PIL's) filters them: each
+    takes the one of the five filters whose bytes, read as signed, have
+    the least sum of absolute values."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[-1] not in _COLOUR:
+        raise ValueError(f"write_png takes [H, W] or [H, W, 1 | 3 | 4] "
+                         f"pixels, got {img.shape}")
+    h, w, c = img.shape
+    x = img.astype(np.int16).reshape(h, w * c)
+    a = np.pad(x, ((0, 0), (c, 0)))[:, :-c]               # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]                  # up
+    ul = np.pad(b, ((0, 0), (c, 0)))[:, :-c]              # up-left
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a,
+                     np.where(pb <= pc, b, ul))
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    filtered = ((x - pred) % 256).astype(np.uint8)        # [5, h, w * c]
+    cost = np.abs(filtered.view(np.int8).astype(np.int32)).sum(-1)
+    kinds = cost.argmin(0)
+    rows = np.concatenate([kinds[:, None].astype(np.uint8),
+                           filtered[kinds, np.arange(h)]], 1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOUR[c],
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b"")), kinds
+
+
+def write_png(path, img: np.ndarray) -> np.ndarray:
+    """Write ``img`` (``encode_png``'s pixels) to ``path`` as a PNG;
+    returns the filter of each row."""
+    data, kinds = encode_png(img)
+    Path(path).write_bytes(data)
+    return kinds

@@ -15,8 +15,10 @@ the learned distribution:
   * pose @ diag(1, -1, -1, 1), the OpenGL -> OpenCV flip;
   * a 4x4 intrinsic with the crop-adjusted cx, cy.
 
-The JAX package's native libpng batch loader (``data/native.py``) is not
-ported; ``load_views`` stacks the per-item path.
+``load_views`` decodes a batch through the native loader
+(``data/native.py``: threaded C++ on zlib) when it builds and the first
+view's PNG header matches the split's height and width, as the JAX
+package's does; otherwise it stacks the per-item path.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
+from codenerf_tpu_torch.data import native
 from codenerf_tpu_torch.data.png import read_png
 
 
@@ -35,7 +38,8 @@ def _read_rgb(path) -> np.ndarray:
 
 
 class SRNDataset:
-    def __init__(self, path: str, stage: str = "train"):
+    def __init__(self, path: str, stage: str = "train",
+                 use_native: bool = True):
         self.base_path = Path(path)
         self.dataset_name = self.base_path.stem.split("_")[-1]
         self.base_path = self.base_path / f"{self.dataset_name}_{stage}"
@@ -66,6 +70,7 @@ class SRNDataset:
         self.num_views = (len(self.rgb_files) // self.num_objects
                           if self.num_objects else 0)
         self._homogeneous = None
+        self.use_native = use_native
 
     def _read_intrinsics(self, object_index: int):
         with open(self.intrinsic_files[object_index]) as f:
@@ -87,38 +92,59 @@ class SRNDataset:
                                     for v in vals[1:])
         return self._homogeneous
 
-    def load_views(self, indices) -> dict:
-        """The samples at ``indices``, stacked."""
-        samples = [self[int(i)] for i in indices]
+    def _meta_for(self, index: int):
+        """(object_id, intrinsic, pose, height, width): everything but the
+        pixels."""
+        object_index, _ = self.rgb_files[index]
+        _, pose_filename = self.pose_files[index]
+        focal, cx, cy, height, width = self._read_intrinsics(object_index)
+        ch, cw = height // 8, width // 8
+        pose = np.loadtxt(pose_filename).reshape(4, 4)
+        pose = pose @ np.diag([1.0, -1.0, -1.0, 1.0])
+        intrinsic = np.eye(4)
+        intrinsic[0, 0] = intrinsic[1, 1] = focal
+        intrinsic[0, 2], intrinsic[1, 2] = cx - cw, cy - ch
+        return (np.int32(object_index), intrinsic.astype(np.float32),
+                pose.astype(np.float32), height, width)
+
+    def load_views(self, indices, num_threads: int = 8) -> dict:
+        """The samples at ``indices``, stacked: decoded by the native
+        loader when it is available and the first view's header matches
+        the split's height and width, else item by item."""
+        indices = [int(i) for i in indices]
+        if self.use_native and indices and native.available():
+            metas = [self._meta_for(i) for i in indices]
+            height, width = metas[0][3], metas[0][4]
+            probe = native.probe(self.rgb_files[indices[0]][1])
+            if probe is not None and probe[:2] == (height, width):
+                colors, masks = native.load_batch(
+                    [self.rgb_files[i][1] for i in indices], height, width,
+                    probe[2], num_threads)
+                native.record("native")
+                return {"object_id": np.stack([m[0] for m in metas]),
+                        "intrinsic": np.stack([m[1] for m in metas]),
+                        "color": colors, "mask": masks,
+                        "pose": np.stack([m[2] for m in metas])}
+        native.record("python")
+        samples = [self[i] for i in indices]
         return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
     def __len__(self):
         return len(self.rgb_files)
 
     def __getitem__(self, index: int) -> dict:
-        object_index, rgb_filename = self.rgb_files[index]
-        _, pose_filename = self.pose_files[index]
-        focal, cx, cy, height, width = self._read_intrinsics(object_index)
-
-        rgb = _read_rgb(rgb_filename)
+        object_id, intrinsic, pose, height, width = self._meta_for(index)
+        rgb = _read_rgb(self.rgb_files[index][1])
         mask = (rgb != 255).all(axis=-1)[..., None].astype(np.float32)
         rgb = rgb.astype(np.float32) / 255.0
 
         ch, cw = height // 8, width // 8
         rgb = rgb[cw:width - cw, ch:height - ch, ...]
         mask = mask[cw:width - cw, ch:height - ch, ...]
-
-        pose = np.loadtxt(pose_filename).reshape(4, 4)
-        pose = pose @ np.diag([1.0, -1.0, -1.0, 1.0])
-
-        intrinsic = np.eye(4)
-        intrinsic[0, 0] = intrinsic[1, 1] = focal
-        intrinsic[0, 2], intrinsic[1, 2] = cx - cw, cy - ch
-
         return {
-            "object_id": np.int32(object_index),
-            "intrinsic": intrinsic.astype(np.float32),
+            "object_id": object_id,
+            "intrinsic": intrinsic,
             "color": rgb.astype(np.float32),
             "mask": mask,
-            "pose": pose.astype(np.float32),
+            "pose": pose,
         }

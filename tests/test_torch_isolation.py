@@ -2,11 +2,12 @@
 
 That machine has torch, numpy and the standard library but no JAX, no
 PyYAML and no imageio, and the port must not reach into the JAX package
-(whose ``__init__`` imports jax).  A subprocess refuses those imports,
-loads every module of the port and chip_smoke.py, reads the flagship
-YAML through ``yaml_lite`` and runs the train and eval CLIs' ``--help``; the
-flagship settings come from ``SRN_CARS_CODE``, which must say what the
-YAML says.
+(whose ``__init__`` imports jax) or the root ``tools/``, nor need PIL.  A
+subprocess refuses those imports, loads every module of the port (its
+tools included) and chip_smoke.py, reads the flagship YAML through
+``yaml_lite`` and runs the train and eval CLIs' and every tool's
+``--help``; the flagship settings come from ``SRN_CARS_CODE``, which must
+say what the YAML says.
 """
 
 import os
@@ -23,7 +24,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 ISOLATED = r'''
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "yaml", "imageio", "triton", "codenerf_tpu")
+BLOCKED = ("jax", "jaxlib", "yaml", "imageio", "PIL", "triton",
+           "codenerf_tpu", "tools")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -91,6 +93,21 @@ for cli in ("train_cli", "eval_cli"):
         assert e.code == 0, e.code
     assert "--load-checkpoint" in help_text.getvalue()
     assert "--device" in help_text.getvalue()
+# the tools around the CLIs and the native loader: each tool's --help
+TOOLS = ("make_synth_data", "render_views", "phi_sweep", "diag_fine",
+         "gpu_selftest", "run_campaign", "supervise_train")
+assert {"codenerf_tpu_torch.tools." + t for t in TOOLS} | {
+    "codenerf_tpu_torch.data.native"} <= set(names)
+for tool in TOOLS:
+    sys.argv = [tool, "--help"]
+    help_text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(help_text):
+            runpy.run_module("codenerf_tpu_torch.tools." + tool,
+                             run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (tool, e.code)
+    assert "usage:" in help_text.getvalue(), tool
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("isolated ok", len(names))
@@ -117,7 +134,8 @@ def _env():
 
 
 def test_port_and_smoke_import_without_jax_yaml_triton():
-    """Also without imageio; the train and eval CLIs' --help run there."""
+    """Also without imageio and PIL; the train and eval CLIs' and the
+    tools' --help run there."""
     out = subprocess.run([sys.executable, "-c", ISOLATED], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
