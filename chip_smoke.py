@@ -198,7 +198,18 @@ with the committed trained weights:
                versions (1e-4); an LLFF tree (poses_bounds.npy, 20 PNGs of
                504x378 in images_8/) rendered in NDC, 5 fern steps (10 K4
                launches a step, the loss falls) and a 32x24 NDC image on
-               the card against the CPU (40 dB); the train CLI on lego.yml
+               the card against the CPU (40 dB); fern JPEG: the committed
+               JPEG fixtures (``codenerf_tpu_torch/fixtures/jpeg/``)
+               decoded by ``data/jpeg.py`` bit-equal to imageio's pixels
+               (the 4032x3024 one by sha256), then an LLFF tree of 20
+               copies of the 4032x3024 fixture in ``images/`` (no
+               ``images_8/``), decoded and box-downsampled 8x by the
+               loader (ms per decoded image on one thread and on
+               ``read_jpegs``' threads, the harness's construction time;
+               view 0 equal to the fixture's, NDC as the PNG tree's), 5
+               steps (10 K4 launches a step) beside the PNG tree's, and
+               the train CLI on it (2 steps, K4; yaml, imageio, PIL and
+               TensorBoard unimportable); the train CLI on lego.yml
                in a subprocess at the YAML's 16 x 16384 rays in 16 ray
                chunks with K4 (3 steps, a validation, a checkpoint; yaml
                and imageio unimportable; peak memory), its checkpoint
@@ -246,7 +257,9 @@ import torch
 from codenerf_tpu_torch.config import (SRN_CARS_CODE, config_from_dict,
                                        load_config, yaml_lite)
 from codenerf_tpu_torch.data import (BatchIterator, SRNDataset, native,
-                                     read_png, write_png)
+                                     read_jpeg, read_jpegs, read_png,
+                                     write_png)
+from codenerf_tpu_torch.data.blender import box_downsample
 from codenerf_tpu_torch.core import (mse2psnr, pixel_directions,
                                      pose_spherical, ssim)
 from codenerf_tpu_torch.eval import (
@@ -1606,17 +1619,28 @@ CLI_YAML = "configs/srn-cars-code.yml"
 # unimportable (None in sys.modules); its last line lists the modules of
 # yaml, imageio, jax or codenerf_tpu that were loaded
 REFUSED = ("yaml", "imageio", "jax", "codenerf_tpu")
-CLI_RUNNER = ("import json, runpy, sys, torch; "
-              "sys.modules.update(dict.fromkeys(('yaml', 'imageio'))); "
-              "runpy.run_module('codenerf_tpu_torch.train_cli', "
-              "run_name='__main__', alter_sys=True); "
-              "from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd; "
-              "print('stats ' + json.dumps({'peak_bytes': "
-              "torch.cuda.max_memory_allocated(), "
-              "'K4': linear_relu_bwd.launches})); "
-              "print('loaded ' + json.dumps(sorted("
-              "m for m, v in sys.modules.items() if v is not None and "
-              f"m.split('.')[0] in {REFUSED!r})))")
+
+
+def cli_runner(blocked=("yaml", "imageio")) -> str:
+    """The train CLI's runner with the modules ``blocked`` unimportable;
+    its last line lists the loaded modules of the packages ``REFUSED``
+    and ``blocked`` name."""
+    refused = REFUSED + tuple(m for m in blocked
+                              if "." not in m and m not in REFUSED)
+    return ("import json, runpy, sys, torch; "
+            f"sys.modules.update(dict.fromkeys({blocked!r})); "
+            "runpy.run_module('codenerf_tpu_torch.train_cli', "
+            "run_name='__main__', alter_sys=True); "
+            "from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd; "
+            "print('stats ' + json.dumps({'peak_bytes': "
+            "torch.cuda.max_memory_allocated(), "
+            "'K4': linear_relu_bwd.launches})); "
+            "print('loaded ' + json.dumps(sorted("
+            "m for m, v in sys.modules.items() if v is not None and "
+            f"m.split('.')[0] in {refused!r})))")
+
+
+CLI_RUNNER = cli_runner()
 OPENGL_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
 
 
@@ -2600,6 +2624,15 @@ FERN_HWF0 = (3024.0, 4032.0, 3260.0)   # the poses' full-size H, W, focal
 VANILLA_STEPS = 10
 FERN_STEPS = 5
 VANILLA_K4 = {"lego": 16, "fern": 10}  # launches per step and ray chunk
+# the fern JPEG tree: FERN_VIEWS copies of the committed 4032x3024 fixture
+# in images/, no images_8/; its train CLI with yaml, imageio and PIL
+# unimportable, and TensorBoard too: its image summaries import PIL (the
+# loggers then write metrics.jsonl alone)
+JPEG_FIXTURES = ROOT / "codenerf_tpu_torch" / "fixtures" / "jpeg"
+JPEG_FULL = "fern_4032x3024_q80_420"
+JPEG_CLI_STEPS = 2
+JPEG_CLI_RUNNER = cli_runner(("yaml", "imageio", "PIL",
+                              "torch.utils.tensorboard"))
 VANILLA_CLI_STEPS = 3
 VANILLA_RUNTIMES = {"xla": {}, "layer_bwd": {"pallas_layer_bwd": True}}
 
@@ -2948,9 +2981,152 @@ def fern_phase(work: Path, card) -> dict:
     # calibrator does (world-space points, no NDC)
     int8 = vanilla_int8("fern NDC", harness, teacher, pose,
                         (small, h, w, centred_dirs(h, w, focal)), card)
+    del teacher, cpu_models, harness
+    jpeg = fern_jpeg(work, cfg, statistics.median(ms), s, card)
     return {"step_ms": statistics.median(ms), "step_ms_all": ms,
             "launches_per_step": per_step, "loss_fine": fine,
-            "ndc_psnr_card_vs_cpu": psnr, "images": n_img, "int8": int8}
+            "ndc_psnr_card_vs_cpu": psnr, "images": n_img, "int8": int8,
+            "jpeg": jpeg}
+
+
+def jpeg_fixtures() -> dict:
+    """Every committed JPEG fixture decoded by ``data/jpeg.py``: the small
+    ones bit-equal to ``pixels.npz``, the full-size one's pixels to the
+    sha256 its JSON holds (both imageio's pixels on a CPU machine)."""
+    want = np.load(JPEG_FIXTURES / "pixels.npz")
+    differ = [name for name in want.files if not np.array_equal(
+        read_jpeg(JPEG_FIXTURES / f"{name}.jpg"), want[name])]
+    meta = json.loads((JPEG_FIXTURES / f"{JPEG_FULL}.json").read_text())
+    full = read_jpeg(JPEG_FIXTURES / meta["file"])
+    sha = hashlib.sha256(full.tobytes()).hexdigest()
+    if differ or list(full.shape) != meta["shape"] or sha != meta["sha256"]:
+        raise RuntimeError(f"JPEG fixtures: {differ} differ from their "
+                           f"pixels; full size {full.shape} sha256 {sha}, "
+                           f"want {meta}")
+    return {"small": len(want.files), "full_shape": list(full.shape),
+            "full_sha256": sha, "full": full}
+
+
+def fern_jpeg(work: Path, cfg, png_step_ms, png_settings, card) -> dict:
+    """The fern JPEG part of phase 10b: the committed fixtures decoded
+    bit-equal; an LLFF tree of ``FERN_VIEWS`` copies of the 4032x3024
+    fixture in ``images/`` (the PNG tree's ``poses_bounds.npy``, no
+    ``images_8/``), which the loader decodes and box-downsamples 8x at
+    construction; ``FERN_STEPS`` steps with K4 beside the PNG tree's; the
+    train CLI on it in a subprocess (yaml, imageio and PIL unimportable)."""
+    t0 = time.perf_counter()
+    fixtures = jpeg_fixtures()
+    full = fixtures.pop("full")
+    fixture_s = time.perf_counter() - t0
+    root = work / "fern_jpeg"
+    (root / "images").mkdir(parents=True)
+    shutil.copy(work / "fern" / "poses_bounds.npy", root / "poses_bounds.npy")
+    src = JPEG_FIXTURES / f"{JPEG_FULL}.jpg"
+    files = [root / "images" / f"img_{v:03d}.jpg" for v in range(FERN_VIEWS)]
+    for f in files:
+        shutil.copy(src, f)
+    one_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        read_jpeg(src)
+        one_ms.append((time.perf_counter() - t1) * 1e3)
+    t1 = time.perf_counter()
+    decoded = read_jpegs(files)
+    batch_ms = (time.perf_counter() - t1) * 1e3
+    if any(not np.array_equal(d, full) for d in decoded):
+        raise RuntimeError("fern JPEG: read_jpegs differs from read_jpeg")
+    del decoded
+    jcfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+        cfg.dataset, basedir=str(root)), experiment=dataclasses.replace(
+            cfg.experiment, id="fern_jpeg"))
+    t1 = time.perf_counter()
+    harness = Harness.from_config(jcfg, device="cuda")
+    build_s = time.perf_counter() - t1
+    s = harness.settings
+    view0 = harness.train_dataset[0]["color"]
+    want0 = box_downsample(full.astype(np.float32) / 255.0,
+                           cfg.dataset.downsample_factor)
+    if view0.shape != (*FERN_HW, 3) or not np.array_equal(view0, want0):
+        raise RuntimeError(f"fern JPEG: view 0 {view0.shape} is not the "
+                           f"fixture box-downsampled to {FERN_HW}")
+    if (s.ndc, s.near, s.far, s.spacing_mode) != (
+            png_settings.ndc, png_settings.near, png_settings.far,
+            png_settings.spacing_mode):
+        raise RuntimeError(f"fern JPEG: NDC {s.ndc} {s.near} {s.far} "
+                           f"{s.spacing_mode}, PNG tree {png_settings.ndc}")
+    views = len(harness.train_dataset) + len(harness.val_dataset)
+    print(f"vanilla fern JPEG: {fixtures['small']} small fixtures bit-equal "
+          f"to imageio's pixels, the {full.shape[1]}x{full.shape[0]} 4:2:0 "
+          f"fixture ({src.stat().st_size} bytes) to its sha256, in "
+          f"{fixture_s:.4g} s; decode {full.shape[1]}x{full.shape[0]}: "
+          f"median {statistics.median(one_ms):.6g} ms on one thread, "
+          f"read_jpegs of {FERN_VIEWS} views {batch_ms:.6g} ms "
+          f"({batch_ms / FERN_VIEWS:.6g} ms per image on its default "
+          f"threads); Harness.from_config on images/ (no images_8/: "
+          f"{views} views decoded and box-downsampled "
+          f"{cfg.dataset.downsample_factor}x to {FERN_HW[1]}x{FERN_HW[0]}) "
+          f"in {build_s:.4g} s; view 0 equal to the fixture's; NDC {s.ndc} "
+          f"as the PNG tree's on {card}", flush=True)
+    n_rays = cfg.nerf.ray_sampler.num_random_rays
+    st = init_train_state(cfg, s, 1, seed=SEED + 37, device="cuda")
+    step = make_train_step(s, st, n_rays, 0.0, True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
+    ms, fine, total, counts = run_steps(step, vanilla_batch(harness, 1), gen,
+                                        FERN_STEPS)
+    per_step = {k: v / FERN_STEPS for k, v in counts.items()}
+    print(f"vanilla fern JPEG layer_bwd: {FERN_STEPS} steps of {n_rays} NDC "
+          f"rays on images/ JPEGs: median {statistics.median(ms):.6g} "
+          f"ms/step (PNG tree {png_step_ms:.6g} ms/step), first "
+          f"{ms[0]:.6g} ms; launches per step {per_step}; fine loss {fine} "
+          f"on {card}", flush=True)
+    if per_step["K4"] != VANILLA_K4["fern"] or not finite(total):
+        raise RuntimeError(f"fern JPEG: launches per step {per_step}, "
+                           f"losses {total}")
+    del st, step, harness
+    torch.cuda.empty_cache()
+    # the train CLI on the JPEG tree
+    cmd = [sys.executable, "-c", JPEG_CLI_RUNNER, "-c", FERN_YAML,
+           f"dataset.basedir={root}", f"experiment.logdir={work}",
+           "experiment.id=fern_jpeg_cli", "experiment.print_every=1",
+           "runtime.pallas_layer_bwd=True", "--max-steps",
+           str(JPEG_CLI_STEPS)]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise RuntimeError(f"fern JPEG train CLI exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    loaded = json.loads(lines[-1][len("loaded "):])
+    stats = json.loads(lines[-2][len("stats "):])
+    train = {r["step"]: r for r in jsonl(work / "fern_jpeg_cli"
+                                         / "metrics.jsonl")
+             if r["mode"] == "train"}
+    want_k4 = VANILLA_K4["fern"] * JPEG_CLI_STEPS
+    cli_fine = [train[i]["nerf_loss_fine"] for i in sorted(train)]
+    print(f"vanilla fern JPEG cli: python3 -m codenerf_tpu_torch.train_cli "
+          f"-c {FERN_YAML} on images/ ({FERN_VIEWS} 4032x3024 JPEGs, "
+          f"downsample_factor {cfg.dataset.downsample_factor}; "
+          f"pallas_layer_bwd; yaml, imageio, PIL and TensorBoard "
+          f"unimportable): exit 0 in "
+          f"{cli_s:.4g} s; step 2 {train[JPEG_CLI_STEPS]['time_taken'] * 1e3:.6g}"
+          f" ms; fine loss {cli_fine}; K4 launches {stats['K4']}; modules "
+          f"loaded {loaded} on {card}", flush=True)
+    if (loaded or sorted(train) != list(range(1, JPEG_CLI_STEPS + 1))
+            or stats["K4"] != want_k4 or not finite(cli_fine)):
+        raise RuntimeError(f"fern JPEG train CLI: loaded {loaded}, train "
+                           f"{sorted(train)}, K4 {stats['K4']} (want "
+                           f"{want_k4}), fine loss {cli_fine}")
+    return {**fixtures, "decode_ms_one_thread": statistics.median(one_ms),
+            "decode_ms_one_thread_all": one_ms,
+            "read_jpegs_ms": batch_ms, "read_jpegs_ms_per_image":
+            batch_ms / FERN_VIEWS, "harness_s": build_s, "views": views,
+            "step_ms": statistics.median(ms), "step_ms_all": ms,
+            "png_step_ms": png_step_ms, "launches_per_step": per_step,
+            "loss_fine": fine, "cli_s": cli_s, "cli_K4": stats["K4"],
+            "cli_step_ms": train[JPEG_CLI_STEPS]["time_taken"] * 1e3,
+            "cli_loss_fine": cli_fine}
 
 
 def vanilla_cli(work: Path, card) -> dict:
@@ -3104,8 +3280,9 @@ def vanilla_phase(card) -> dict:
               f"layer_bwd {lego['layer_bwd']['step_ms']:.6g} ms (1 x 16384 "
               f"rays); full-batch CLI step {cli['step_ms']:.6g} ms, peak "
               f"{cli['peak_bytes'] / 2**30:.4g} GiB; fern step "
-              f"{fern['step_ms']:.6g} ms; phase {time.perf_counter() - t0:.4g}"
-              f" s on {card}", flush=True)
+              f"{fern['step_ms']:.6g} ms (JPEG tree "
+              f"{fern['jpeg']['step_ms']:.6g} ms); phase "
+              f"{time.perf_counter() - t0:.4g} s on {card}", flush=True)
         return {"lego": lego, "fern": fern, "cli": cli}
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3951,6 +4128,9 @@ def main():
             "lego_per_step": vanilla["lego"]["layer_bwd"][
                 "launches_per_step"]["K4"],
             "fern_per_step": vanilla["fern"]["launches_per_step"]["K4"],
+            "fern_jpeg_per_step": vanilla["fern"]["jpeg"][
+                "launches_per_step"]["K4"],
+            "fern_jpeg_cli_train": vanilla["fern"]["jpeg"]["cli_K4"],
             "lego_cli_train": vanilla["cli"]["train_launches_K4"]},
         "vanilla_step_ms": {k: sum(n * r["ms"] for r, n in rows)
                             for k, rows in vanilla_k4_steps.items()},

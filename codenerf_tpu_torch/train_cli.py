@@ -17,9 +17,13 @@ raises without a card unless ``--device cpu`` is given) in place of
 ``cuda:0..N-1``, NCCL; or N gloo ranks under ``--device cpu``), each of
 which trains on its share of every ray batch; under torchrun
 (``torchrun --nproc-per-node N -m codenerf_tpu_torch.train_cli ...``)
-each process joins torchrun's group.  Rank 0 writes the checkpoints and
-the logs, and its metrics are returned.  ``--distributed`` is a no-op,
-as in ``train.py``.  The overrides
+each process joins torchrun's group.  ``--multihost`` (``train.py``'s
+flag, which calls ``jax.distributed.initialize()``) joins torchrun's
+group as ``eval_cli --multihost`` does: without torchrun's environment
+(``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) it raises,
+and together with ``-g N`` it raises rather than spawn.  Rank 0 writes
+the checkpoints and the logs, and its metrics are returned.
+``--distributed`` is a no-op, as in ``train.py``.  The overrides
 ``runtime.int8_serving=true`` and ``runtime.int8_encode=true`` add the
 int8 serving render to each validation.  Checkpoints are
 ``<logdir>/<id>/checkpoints/<step>.ckpt`` in the reference's layout.
@@ -47,14 +51,24 @@ def main(argv=None):
                              "flag; 0 = all).")
     parser.add_argument("--distributed", action="store_true",
                         help="Compat no-op (reference flag).")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Join torchrun's process group: the ranks "
+                             "split every step's rays.")
     parser.add_argument("overrides", nargs="*",
                         help="Dotted config overrides, e.g. optimizer.lr=3e-4")
     args = parser.parse_args(argv)
 
     from codenerf_tpu_torch.config import load_config
-    from codenerf_tpu_torch.parallel import close_world, launch
+    from codenerf_tpu_torch.parallel import close_world, init_world, launch
     from codenerf_tpu_torch.train.loop import run_training
 
+    torchrun = "WORLD_SIZE" in os.environ
+    if args.multihost and not all(k in os.environ for k in (
+            "WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")):
+        raise RuntimeError(
+            "--multihost joins torchrun's process group: run it under "
+            "torchrun (WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT "
+            "are not set)")
     cfg = load_config(args.config, overrides=args.overrides)
     if args.load_checkpoint:
         cfg = dataclasses.replace(
@@ -64,7 +78,7 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, runtime=dataclasses.replace(cfg.runtime,
                                              num_devices=args.gpus))
-    if args.gpus > 1 and "WORLD_SIZE" not in os.environ:
+    if args.gpus > 1 and not torchrun:
         devices = launch.devices_for(args.gpus, args.device)
         if devices[0].type == "cuda":
             import torch
@@ -77,6 +91,8 @@ def main(argv=None):
         return launch.spawn(_train_rank, args.gpus, (cfg, args.max_steps),
                             devices=devices)[0]
     try:
+        if args.multihost:
+            init_world(device=args.device)
         return run_training(cfg, max_steps=args.max_steps,
                             device=args.device)
     finally:

@@ -3,10 +3,11 @@ trees written by ``tools/make_synth_data.py --format blender|llff``:
 every sample (colour with its alpha, mask, pose, intrinsic, object id)
 equal, at ``resolution_level`` 1 and 2 (Blender), with the in-memory
 ``downsample_factor`` and with a pre-downsampled ``images_N`` directory
-(LLFF), and the ``llffhold`` split; a JPEG image is refused by name; and
-``Harness.from_config`` sets NDC for an LLFF scene as JAX's does.
+(LLFF), and the ``llffhold`` split; a malformed JPEG is refused by name;
+and ``Harness.from_config`` sets NDC for an LLFF scene as JAX's does.
 """
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -94,11 +95,19 @@ def test_llff_reads_images_n(tmp_path):
 
 
 def test_llff_refuses_jpeg(tmp_path):
+    """A malformed JPEG (SOI and nothing more) raises ValueError naming
+    the file, read as it is (``images_4``) and decoded at construction
+    (``images/`` downsampled in memory)."""
     root = _synth(tmp_path / "fern", "llff", "--views", "2")
     (root / "images_4").mkdir()
     for i in range(2):
         (root / "images_4" / f"img_{i:03d}.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="JPEG decoder"):
+    ds = LLFFDataset(str(root), "val", downsample_factor=4)
+    with pytest.raises(ValueError, match="img_000.jpg: truncated"):
+        ds[0]
+    shutil.rmtree(root / "images")
+    (root / "images_4").rename(root / "images")
+    with pytest.raises(ValueError, match="img_000.jpg: truncated"):
         LLFFDataset(str(root), "val", downsample_factor=4)
 
 

@@ -108,6 +108,14 @@ for tool in TOOLS:
     except SystemExit as e:
         assert e.code == 0, (tool, e.code)
     assert "usage:" in help_text.getvalue(), tool
+# the JPEG decoder: imported, built and run without PIL or imageio
+assert "codenerf_tpu_torch.data.jpeg" in names
+import numpy as np
+from codenerf_tpu_torch.data.jpeg import read_jpeg
+fixture = "codenerf_tpu_torch/fixtures/jpeg/q75_420_37x53"
+assert np.array_equal(read_jpeg(fixture + ".jpg"),
+                      np.load("codenerf_tpu_torch/fixtures/jpeg/pixels.npz")[
+                          "q75_420_37x53"])
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("isolated ok", len(names))
@@ -135,7 +143,7 @@ def _env():
 
 def test_port_and_smoke_import_without_jax_yaml_triton():
     """Also without imageio and PIL; the train and eval CLIs' and the
-    tools' --help run there."""
+    tools' --help run there, and the JPEG decoder reads a fixture."""
     out = subprocess.run([sys.executable, "-c", ISOLATED], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
