@@ -20,7 +20,11 @@ with the committed trained weights:
                rays and the train step's R = 16384, S = 32 and 160; K4 also
                at R = 1000, S = 24, a masked tail tile): max abs error and
                relRMS of every output (gate 1e-2 in bf16), K1-K4
-               bit-identical across two calls; K1-K4 also in f32 (gate
+               bit-identical across two calls (K2 / K3 also: the route
+               ``plan.k2_plan`` took, the wgmma row pass at these bf16
+               shapes, and a frozen-trunk call, ``need_dw=False``, whose
+               g_pts and per-ray grads equal the full call's bit for bit,
+               timed beside it); K1-K4 also in f32 (gate
                1e-4: both sum in f32, in other orders); kernel, plain and
                library times (CUDA events around back-to-back calls)
                beside the bound (K1: the kernel on inputs packed once, and
@@ -68,7 +72,8 @@ with the committed trained weights:
                fall), (c) one fused, one hybrid and one layer_bwd step
                under ``torch.profiler`` (a kernel's device time sums all of
                its launches: K2 / K3 are a row pass and the dW products,
-               K4 a row pass and the dw product); then f32: one step each
+               K4 a row pass and the dw product; no row-tile pass may
+               run at the flagship's bf16 shapes); then f32: one step each
                in fused and hybrid mode against the plain-version step
                (gradient relRMS gate 1e-4 per leaf, finite loss) and one
                step on the ray-structured path (finite loss).
@@ -83,7 +88,8 @@ with the committed trained weights:
                against xla), (b) 30 steps (ms per step, rays/s, TTO steps/s,
                launches per step, the fine loss must fall, the mean pose
                error), (c) fused, hybrid and layer_bwd profiles (K2 / K3
-               split into the row pass and the dW products nobody reads);
+               split into the row pass and the dW products, which a frozen
+               model must not launch, nor the row-tile pass);
                single TTO of 4096 rays (ms per step, a profile) and batched
                K = 1
                against it from one generator (rtol 2e-5 on the codes, 1e-5
@@ -405,10 +411,16 @@ def profile_call(fn, args, unprofiled_ms, kernels: dict) -> dict:
             "top": [[k[:80], v] for k, v in top]}
 
 
-def profile_step(label, step, args, step_ms, labels, card) -> dict:
+def profile_step(label, step, args, step_ms, labels, card,
+                 absent=()) -> dict:
     """``profile_call`` over one step, printed as the ``<label> profile``
-    line and a JSON line."""
+    line and a JSON line; each label of ``absent`` (a kernel the step must
+    not launch) must have no device time."""
     prof = profile_call(step, args, step_ms, labels)
+    ran = [k for k in absent if prof["kernel_ms"][k]]
+    if ran:
+        raise RuntimeError(f"{label} profile: {ran} launched: "
+                           f"{prof['kernel_ms']}")
     if prof["device_busy_ms"]:
         print(f"{label} profile: device busy {prof['device_busy_ms']:.6g} ms "
               f"per step against the unprofiled {step_ms:.6g} ms (idle share "
@@ -547,19 +559,25 @@ def trunk_backward_library(pts, per_ray, b1, weights, g, acts=None):
 
 
 def bwd_outputs(res) -> dict:
-    """The outputs of a trunk backward, by name."""
+    """The outputs of a trunk backward, by name (db1 and the weight grads
+    only where it computed them)."""
     g_pts, g_per_ray, db1, dw = res
-    out = {"g_pts": g_pts, "db1": db1}
+    out = {"g_pts": g_pts}
     out.update({f"g_{k}": g_per_ray[k] for k in PER_RAY_KEYS})
-    out.update({f"d{k}": v for k, v in dw.items() if v is not None})
+    if dw is not None:
+        out["db1"] = db1
+        out.update({f"d{k}": v for k, v in dw.items() if v is not None})
     return out
 
 
 def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
     """K2 and K3 against their plain version on the card: every output at
     R = 4096 rays and at the train step's R = len(ro) rays, S = 32 and 160
-    (relRMS gate, bit-identity across two calls), and kernel, plain and
-    library (``trunk_backward_library``) times at the train step's R."""
+    (relRMS gate, bit-identity across two calls), the route
+    ``plan.k2_plan`` took, a frozen-trunk call (``need_dw=False``) that
+    must return the full call's g_pts and per-ray grads bit for bit, and
+    kernel, frozen, plain and library (``trunk_backward_library``) times
+    at the train step's R."""
     cfg = model.cfg
     F = settings.num_encoding_fn_xyz
     R_step = ro.shape[0]
@@ -586,17 +604,23 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
                 _, acts = hybrid_forward_plain(pts, per_ray, weights,
                                                compute_dtype=cfg.cdtype)
             for name, a in (("K2", None), ("K3", acts)):
-                def kern():
+                def kern(need_dw=True):
                     return trunk_backward(pts, per_ray, b1, weights, g, a,
-                                          compute_dtype=cfg.cdtype)
+                                          compute_dtype=cfg.cdtype,
+                                          need_dw=need_dw)
+
+                def frozen():
+                    return kern(need_dw=False)
 
                 def plain():
                     return trunk_backward_plain(pts, per_ray, b1, weights,
                                                 g, a,
                                                 compute_dtype=cfg.cdtype)
 
-                got, again, want = (bwd_outputs(f())
-                                    for f in (kern, kern, plain))
+                got = bwd_outputs(kern())
+                route = fused.trunk_backward.route
+                again, cold, want = (bwd_outputs(f())
+                                     for f in (kern, frozen, plain))
                 torch.cuda.synchronize()
                 errs = {}
                 for k, w in want.items():
@@ -610,9 +634,19 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
                     if not torch.equal(got[k], again[k]):
                         raise RuntimeError(f"{name} {k} differs between "
                                            f"two calls at R={R}, S={S}")
+                if set(cold) != {"g_pts", *(f"g_{k}" for k in PER_RAY_KEYS)}:
+                    raise RuntimeError(f"{name} need_dw=False returned "
+                                       f"{sorted(cold)}")
+                for k, v in cold.items():
+                    if not torch.equal(v, got[k]):
+                        raise RuntimeError(f"{name} {k} with need_dw=False "
+                                           f"differs from the full call at "
+                                           f"R={R}, S={S}")
                 worst = max(errs, key=lambda k: errs[k][1])
-                print(f"{name} R={R} S={S}: every output bit-identical "
-                      f"across two calls; max_abs_err / rel_rms: "
+                print(f"{name} R={R} S={S} ({route} route): every output "
+                      f"bit-identical across two calls, the frozen call's "
+                      f"({', '.join(cold)}) bit-identical to the full "
+                      f"call's; max_abs_err / rel_rms: "
                       + ", ".join(f"{k} {v[0]:.3g}/{v[1]:.3g}"
                                   for k, v in errs.items()), flush=True)
                 if not errs[worst][1] <= REL_RMS_GATE:
@@ -620,26 +654,29 @@ def check_bwd(settings, model, ro, rd, zs, zt, card) -> dict:
                         f"{name} disagrees with its plain version at R={R}, "
                         f"S={S}: {worst} relRMS {errs[worst][1]} > "
                         f"{REL_RMS_GATE}")
-                row = {"R": R, "S": S,
+                row = {"R": R, "S": S, "route": route,
                        "max_abs_err": max(v[0] for v in errs.values()),
                        "rel_rms": errs[worst][1], "worst": worst}
-                del got, again, want
+                del got, again, cold, want
                 if R == R_step:
                     def library():
                         return trunk_backward_library(pts, per_ray, b1,
                                                       weights, g, a)
 
                     ms = time_ms(kern, calls=3, repeats=5, warmup=1)
+                    frozen_ms = time_ms(frozen, calls=3, repeats=5, warmup=1)
                     plain_ms = time_ms(plain, calls=1, repeats=3, warmup=1)
                     library_ms = time_ms(library, calls=3, repeats=5,
                                          warmup=1)
                     cost = bwd_cost(R, S, weights, per_ray, F, a is not None)
                     b_ms, b_by = bound_ms(cost)
-                    row.update({"ms": ms, "plain_ms": plain_ms,
+                    row.update({"ms": ms, "frozen_ms": frozen_ms,
+                                "plain_ms": plain_ms,
                                 "library_ms": library_ms,
                                 "bound_ms": b_ms, "bound_by": b_by,
                                 "cost": cost})
                     print(f"{name} R={R} S={S}: ms={ms:.6g} "
+                          f"frozen_ms={frozen_ms:.6g} "
                           f"plain_ms={plain_ms:.6g} "
                           f"library_ms={library_ms:.6g} bound_ms={b_ms:.6g} "
                           f"({b_by}) achieved="
@@ -929,10 +966,9 @@ def check_widths(card) -> dict:
                                                  compute_dtype=cd)
         route = launch.route
         es = 2 if cd == torch.bfloat16 else 4
-        hp, scp = (plan.padded(n, plan.TRUNK_MULTIPLE) for n in (H, SC))
         k1_rows = plan.k1_plan(R, S, H, SC, F, es, n_sm)["tile_rows"]
-        bwd_rows = plan.trunk_bwd_plan(R, S, hp, scp, F, True, es, n_sm,
-                                       False)["rows"]["tile_rows"]
+        bwd_pl = plan.k2_plan(R, S, H, SC, F, True, es, n_sm, False)
+        bwd_route, bwd_rows = bwd_pl["route"], bwd_pl["rows"]["tile_rows"]
         before = trunk_forward.launches
         got, again = (trunk_forward(pts, per_ray, weights, compute_dtype=cd)
                       for _ in range(2))
@@ -955,9 +991,10 @@ def check_widths(card) -> dict:
                                           trunk_backward_plain))
             torch.cuda.synchronize()
             out[kname].append(dict(_gate_widths(
-                f"widths {kname} {name} R={R} ({bwd_rows}-row tiles)",
+                f"widths {kname} {name} R={R} ({bwd_route} route, "
+                f"{bwd_rows}-row tiles)",
                 _errs(got, again, want, f"{kname} {name}"), gate),
-                tile_rows=bwd_rows))
+                route=bwd_route, tile_rows=bwd_rows))
         del model, acts
     for name, K, N, dt, R in K4_WIDTH_CASES:
         gate = REL_RMS_GATE if dt == torch.bfloat16 else F32_REL_RMS_GATE
@@ -1083,18 +1120,27 @@ TRAIN_MODES = {
 
 
 # the device kernels of each port kernel, by name substring, in the modes
-# that are profiled: K2 and K3 are a row pass, the dW products (xtg.cuh)
-# and two sums; K4 a row pass, the dw product and its sums
+# that are profiled: K2 and K3 are a row pass (bf16 at the flagship: the
+# wgmma row pass; f32 and wider shapes: the row-tile pass), the dW products
+# (xtg.cuh) and two sums; K4 a row pass, the dw product and its sums
 XTG = ("xtg_wgmma_kernel", "xtg_simt_kernel", "xtg_reduce")
+ROWS = ("trunk_bwd_rows_wgmma", "trunk_bwd_rows_kernel")
 PROFILE_LABELS = {
     "fused": {"K1": ("trunk_fwd_kernel",),
-              "K2": ("trunk_bwd_rows_kernel", *XTG),
-              "K2 row pass": ("trunk_bwd_rows_kernel",), "K2 dW": XTG},
-    "hybrid": {"K3": ("trunk_bwd_rows_kernel", *XTG),
-               "K3 row pass": ("trunk_bwd_rows_kernel",), "K3 dW": XTG},
+              "K2": (*ROWS, *XTG), "K2 row pass": ROWS, "K2 dW": XTG,
+              "K2 row-tile pass": ("trunk_bwd_rows_kernel",)},
+    "hybrid": {"K3": (*ROWS, *XTG), "K3 row pass": ROWS, "K3 dW": XTG,
+               "K3 row-tile pass": ("trunk_bwd_rows_kernel",)},
     "layer_bwd": {"K4": ("layer_bwd_rows", *XTG),
                   "K4 row pass": ("layer_bwd_rows",), "K4 dw": XTG},
 }
+# what a profiled flagship step must not launch: the row-tile pass (bf16
+# takes the wgmma row pass there) and, in TTO (a frozen model), the dW
+# products
+TRAIN_ABSENT = {"fused": ("K2 row-tile pass",),
+                "hybrid": ("K3 row-tile pass",)}
+TTO_ABSENT = {"fused": ("K2 row-tile pass", "K2 dW"),
+              "hybrid": ("K3 row-tile pass", "K3 dW")}
 
 
 def mode_config(flags: dict):
@@ -1253,7 +1299,8 @@ def train_phase(size, dirs, teacher, tables, card) -> dict:
         if mode in PROFILE_LABELS:
             row["profile"] = profile_step(
                 f"train {mode}", step, (dirs, poses, pixels, ids, gen),
-                step_ms, PROFILE_LABELS[mode], card)
+                step_ms, PROFILE_LABELS[mode], card,
+                TRAIN_ABSENT.get(mode, ()))
         del student, step
         torch.cuda.empty_cache()
 
@@ -1499,7 +1546,7 @@ def tto_phase(size, dirs, models, card) -> dict:
         if mode in PROFILE_LABELS:
             row["profile"] = profile_step(
                 f"tto {mode}", step, (st, *args, gen), step_ms,
-                PROFILE_LABELS[mode], card)
+                PROFILE_LABELS[mode], card, TTO_ABSENT.get(mode, ()))
         results[mode] = row
         if mode == "fused":
             fused_state = st
@@ -1516,7 +1563,8 @@ def tto_phase(size, dirs, models, card) -> dict:
     if not finite([float(m.loss) for m in mets]):
         raise RuntimeError("tto single: a loss is not finite")
     single_prof = profile_step("tto single", step1, (single, *one),
-                               single_ms, PROFILE_LABELS["fused"], card)
+                               single_ms, PROFILE_LABELS["fused"], card,
+                               TTO_ABSENT["fused"])
     runs = {}
     for kind in ("single", "batched"):
         if kind == "single":
@@ -4049,9 +4097,11 @@ def main():
         cost = {k: sum(r["cost"][k] for r in rows) for k in rows[0]["cost"]}
         b_ms, b_by = bound_ms(cost)
         kernels.append({
-            "name": f"{name} trunk_bwd<{'true' if name == 'K3' else 'false'}>",
+            "name": f"{name} trunk_bwd_rows_wgmma<"
+                    f"{'false' if name == 'K3' else 'true'}> + xtg",
             "route": "cuda",
             "source": "codenerf_tpu_torch/ops/csrc/trunk_bwd.cu",
+            "row_pass": sorted({r["route"] for r in rows}),
             "replaces": "codenerf_tpu/ops/fused.py:183",
             "launches": train[mode]["launches"][name],
             "launches_per_train_step": train[mode]["launches_per_step"][name],
@@ -4065,6 +4115,9 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in bwd[name]),
             "rel_rms": max(r["rel_rms"] for r in bwd[name]),
             "ms": sum(r["ms"] for r in rows),
+            "frozen_ms": sum(r["frozen_ms"] for r in rows),
+            "frozen_note": "need_dw=False, a frozen trunk's call (TTO, "
+                           "validation): no dW operand, no dW product",
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": b_ms,
             "bound_by": b_by,

@@ -2,7 +2,7 @@
 // with zero fill, the async-proxy fence, warpgroup matrix multiplies
 // (wgmma) on operands in 128-byte swizzled shared memory, and the
 // mbarriers, bulk copies, named barriers and register moves (setmaxnreg)
-// of the warp-specialised K1.
+// of the warp-specialised K1 and K2 / K3 row pass.
 //
 // Shared-memory operand layout (the canonical 128-byte swizzle of the PTX
 // ISA's wgmma matrix descriptors): an operand tile is cut into column blocks
@@ -116,8 +116,8 @@ __device__ __forceinline__ void wgmma_m64n256k16_tt(float* d, uint64_t da, uint6
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d += A B for an m64nNk16 wgmma with both operands K-major; N is 8, 128
-// or 256 (the accumulator holds N / 2 floats a thread)
+// d += A B for an m64nNk16 wgmma with both operands K-major; N is 8, 80,
+// 128 or 256 (the accumulator holds N / 2 floats a thread)
 template <int N>
 __device__ __forceinline__ void wgmma_nn(float* d, uint64_t da, uint64_t db);
 template <>
@@ -128,6 +128,23 @@ __device__ __forceinline__ void wgmma_nn<8>(float* d, uint64_t da, uint64_t db) 
       "%0, %1, %2, %3"
       "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_nn<80>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,  "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,  "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -197,6 +214,23 @@ __device__ __forceinline__ void wgmma_nn0<8>(float* d, uint64_t da, uint64_t db)
       "%0, %1, %2, %3"
       "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_nn0<80>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,  "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,  "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39])
       : "l"(da), "l"(db), "r"(0));
 }
 

@@ -1,26 +1,27 @@
-// Shared pieces of the fused CodeNeRF trunk kernels: K1 (trunk_fwd.cu) and
-// K2 / K3 (trunk_bwd.cu).
+// Shared pieces of the fused CodeNeRF trunk's row-tile kernels: f32 K1
+// and K1 past the wgmma kernel's widths (trunk_fwd.cu), and the row-tile
+// pass of K2 / K3 (trunk_bwd.cu).
 //
-// K2 recomputes K1's forward and takes its relu masks from the recomputed
-// activations.  In f32 both kernels run the same code, the encode and the
-// five hidden layers here (fwd_front, fwd_back), so they produce the same
-// activations bit for bit.  bf16 K1 is a kernel of its own (trunk_fwd.cu,
-// wgmma with streamed weights) that sums its products in another order,
-// so a bf16 rounding, and with it a relu mask, can rarely differ from K2's
-// recompute; the fused step's gradient gate covers that.  Both keep the
-// TPU kernel's cast points for the compute type T (every product an f32
-// sum of T products rounded to T; per-ray rows and biases added in T).
+// A row-tile K2 recomputes K1's forward and takes its relu masks from the
+// recomputed activations.  It runs the same code as the row-tile K1, the
+// encode and the five hidden layers here (fwd_front, fwd_back), so the two
+// produce the same activations bit for bit: in f32 (both kernels' only
+// route) and in bf16 wider than 256 or with more than 10 bands.  At the
+// flagship's widths bf16 K2 runs the wgmma K1's chain instead (its code in
+// trunk_chain.cuh: the same products, epilogues and roundings), so there
+// too K2's masks are K1's bit for bit.  Both keep the TPU kernel's cast points for the compute type T
+// (every product an f32 sum of T products rounded to T; per-ray rows and
+// biases added in T).
 //
-// T is bf16 (K2 / K3; products on the tensor cores through wmma 16x16x16
-// with f32 accumulators) or float (K1 and K2 / K3 in compute_dtype
-// float32; products on the CUDA cores in f32 fma, no TF32, so every
-// rounding to T is exact and nothing is rounded between products, as in
-// JAX with cd = f32).  A tile is 64 rows in bf16 and 32 in f32 (the same
-// bytes of shared memory), or a half or a quarter of that for layers too
-// wide for a full tile's buffers: the tile's rows TM are a template
-// argument, picked by plan.py::row_tile and checked by the entry points.
-// No sum runs across rows, so every TM gives the same bits.  The build
-// hashes this header into both libraries' names.
+// T is bf16 (products on the tensor cores through wmma 16x16x16 with f32
+// accumulators) or float (products on the CUDA cores in f32 fma, no TF32,
+// so every rounding to T is exact and nothing is rounded between
+// products, as in JAX with cd = f32).  A tile is 64 rows in bf16 and 32 in
+// f32 (the same bytes of shared memory), or a half or a quarter of that
+// for layers too wide for a full tile's buffers: the tile's rows TM are a
+// template argument, picked by plan.py::row_tile and checked by the entry
+// points.  No sum runs across rows, so every TM gives the same bits.  The
+// build hashes this header into every library's name.
 
 #pragma once
 

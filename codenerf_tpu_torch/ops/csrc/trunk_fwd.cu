@@ -74,9 +74,12 @@
 //     accumulator while the earlier result lived on only in registers lost
 //     the later product in ptxas's output (a wrong h1 in development), so
 //     layer 1 gives sin and cos their own halves.
-// The f32 sums run in another order than K2's recompute (trunk_common.cuh),
-// so a bf16 rounding, and with it a relu mask, can rarely differ between
-// this forward and K2's.
+// bf16 K2 recomputes this chain with the same code, kept in
+// trunk_chain.cuh for its wgmma row pass (trunk_bwd.cu), so K2's relu masks
+// are this forward's bit for bit.  This kernel keeps its own copy: built
+// from the header's pieces (hooks, a warpgroup struct), ptxas spilled many
+// more of its registers and it ran about a third slower, with the same
+// outputs.
 //
 // f32 (trunk_fwd_kernel<float, TM>): one block of 8 warps per 32 rows (16
 // or 8 for layers too wide for that tile's buffers, plan.py::row_tile); the

@@ -14,8 +14,10 @@ forward stored), one template in ``csrc/trunk_bwd.cu``.
 points in plain PyTorch, for CPU tensors; ``trunk_backward`` does the same
 for K2 / K3 and ``trunk_backward_plain``.  The kernels compute in bf16 or
 f32, with the launch plan of ``ops/plan.py``.  K2 / K3 are a row pass
-(K2's runs the forward again) and the weight-gradient products
-(``csrc/xtg.cuh``).  Each wrapper counts its launches, one per call
+(K2's runs the forward again; in bf16 at K1's widths the wgmma row pass
+that shares K1's chain, ``csrc/trunk_chain.cuh``) and the weight-gradient
+products (``csrc/xtg.cuh``), which a frozen trunk (``need_dw`` False)
+skips.  Each wrapper counts its launches, one per call
 (``trunk_forward.launches``, ``trunk_backward.launches_recompute`` and
 ``.launches_stored``).
 
@@ -185,13 +187,16 @@ def hybrid_forward_plain(pts, per_ray: dict, weights: dict, *,
 
 
 def trunk_backward_plain(pts, per_ray: dict, b1, weights: dict, g,
-                         acts: dict | None = None, *, compute_dtype=None):
+                         acts: dict | None = None, *, compute_dtype=None,
+                         need_dw: bool = True):
     """K2 (or, with ``acts``, K3) in plain PyTorch: ``_trunk_bwd_impl``'s
     arithmetic and cast points (fused.py:183-346), step by step.
 
     Returns (g_pts [R, S, 3], per-ray grads {zs1p featp sigp dirp zt1p},
     each [R, .], db1 [h], weight grads {w1x w1s w1c w2 wof wos wd wd2 bd2
-    wr}), all f32.
+    wr}), all f32.  Without ``need_dw`` (a frozen trunk) db1 and the
+    weight grads are None and not computed; g_pts and the per-ray grads
+    come from the same code.
     """
     cd = compute_dtype or torch.float32
     f32 = torch.float32
@@ -244,6 +249,8 @@ def trunk_backward_plain(pts, per_ray: dict, b1, weights: dict, g,
     g_per_ray = {"zs1p": ray_sum(g_h2), "featp": ray_sum(g_feat),
                  "sigp": ray_sum(g_sig), "dirp": ray_sum(g_v1),
                  "zt1p": ray_sum(g_rgb)}
+    if not need_dw:
+        return g_pts.reshape(R, S, 3), g_per_ray, None, None
     dweights = {
         "w1x": (None if weights["w1x"] is None else
                 d_w(pts.reshape(N, 3), g_h1)),
@@ -343,9 +350,11 @@ def pad_trunk(per_ray: dict, weights: dict, b1, acts, h: int, sc: int):
 def unpad_trunk_grads(grads, h: int, sc: int):
     """``trunk_backward``'s (g_pts, per-ray grads, db1, weight grads) at
     padded widths, sliced back to hidden width ``h`` and code width
-    ``sc``."""
+    ``sc`` (db1 and the weight grads None without ``need_dw``)."""
     g_pts, g_per_ray, db1, dw = grads
     widths = {"h": h, "s": sc}
+    if dw is None:
+        return g_pts, _resize(g_per_ray, widths), None, None
     return (g_pts, _resize(g_per_ray, widths), db1[:h],
             _resize(dw, widths))
 
@@ -421,8 +430,48 @@ def _check(err, name, error_string, what):
                            f"({error_string(err).decode()})")
 
 
-# the sources of bf16 K1's weight images ([in, out] each), in order
+# the sources of the wgmma kernels' weight images ([in, out] each), in
+# order
 _K1_SOURCES = ("w1s", "w1c", "w1x", "w2", "wof", "wd", "wd2")
+
+
+def _source_offsets(H: int, SC: int, F: int, has_x: bool):
+    """({key: (offset, rows, cols)}, total) of each weight in the flat
+    concatenation of ``_K1_SOURCES`` (w1x only with the input term); the
+    element at ``total`` is a zero."""
+    shapes = {"w1s": (3 * F, H), "w1c": (3 * F, H), "w1x": (3, H),
+              "w2": (H, H), "wof": (H, SC), "wd": (SC, H), "wd2": (H, H)}
+    offset, total = {}, 0
+    for k in _K1_SOURCES:
+        if k != "w1x" or has_x:
+            offset[k] = (total, *shapes[k])
+            total += shapes[k][0] * shapes[k][1]
+    return offset, total
+
+
+def _image(offset: dict, total: int, n_pad: int, k_pad: int, parts,
+           transposed: bool) -> np.ndarray:
+    """One weight image: an index into the flat sources for each element
+    of B [n_pad, k_pad] (``total``, a zero, where no weight is), laid out
+    K-major with the 128-byte swizzle of ``csrc/hopper.cuh``: chunk c holds
+    the rows' columns [64 c, 64 c + 64), 128 bytes a row, and the 16-byte
+    piece q of row n sits at piece position q ^ (n % 8).  ``parts`` places
+    weights at (key, n0, k0): B[n0 + n, k0 + k] = W[k, n] when
+    ``transposed`` (the forward's W^T), else W[n, k] (the backward's w as
+    stored)."""
+    idx = np.full((n_pad, k_pad), total, dtype=np.int64)
+    for key, n0, k0 in parts:
+        off, rows, cols = offset[key]
+        if transposed:
+            n, k = np.arange(cols)[:, None], np.arange(rows)[None, :]
+            idx[n0 + n, k0 + k] = off + k * cols + n
+        else:
+            n, k = np.arange(rows)[:, None], np.arange(cols)[None, :]
+            idx[n0 + n, k0 + k] = off + n * cols + k
+    kc = k_pad // plan.K1_CHUNK_K
+    pieces = idx.reshape(n_pad, kc, 8, 8).transpose(1, 0, 2, 3)
+    n = np.arange(n_pad)[:, None]
+    return pieces[:, n, np.arange(8)[None, :] ^ (n % 8)].reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,58 +483,76 @@ def k1_image_index(H: int, SC: int, F: int, has_x: bool) -> np.ndarray:
     The images follow ``plan.k1_chunks``: the first layer's [w1s^T |
     w1c^T | w1x^T] at the encode's columns (sin at 0, cos at 32, x at
     64; zero elsewhere, and all of x's without the input term), then
-    w2^T, wof^T, wd^T, wd2^T.  Each transposed weight [N, K] is
-    zero-padded to the wgmma widths in N and K and laid out K-major with
-    the 128-byte swizzle of ``csrc/hopper.cuh``: chunk c holds the rows'
-    columns [64 c, 64 c + 64), 128 bytes a row, and the 16-byte piece q of
-    row n sits at piece position q ^ (n % 8)."""
-    shapes = {"w1s": (3 * F, H), "w1c": (3 * F, H), "w1x": (3, H),
-              "w2": (H, H), "wof": (H, SC), "wd": (SC, H), "wd2": (H, H)}
-    offset, total = {}, 0
-    for k in _K1_SOURCES:
-        if k != "w1x" or has_x:
-            offset[k] = total
-            total += shapes[k][0] * shapes[k][1]
-
-    def image(n_pad, k_pad, parts):
-        idx = np.full((n_pad, k_pad), total, dtype=np.int64)
-        for key, k0 in parts:
-            rows, N = shapes[key]
-            n, k = np.arange(N)[:, None], np.arange(rows)[None, :]
-            idx[n, k0 + k] = offset[key] + k * N + n     # W^T[n, k] = W[k, n]
-        kc = k_pad // plan.K1_CHUNK_K
-        pieces = idx.reshape(n_pad, kc, 8, 8).transpose(1, 0, 2, 3)
-        n = np.arange(n_pad)[:, None]
-        return pieces[:, n, np.arange(8)[None, :] ^ (n % 8)].reshape(-1)
-
+    w2^T, wof^T, wd^T, wd2^T, each transposed weight [N, K] zero-padded to
+    the wgmma widths in N and K (``_image``)."""
+    offset, total = _source_offsets(H, SC, F, has_x)
     nh, ns = plan.k1_wgmma_width(H), plan.k1_wgmma_width(SC)
-    first = [("w1s", 0), ("w1c", 32)] + ([("w1x", 64)] if has_x else [])
+    first = [("w1s", 0, 0), ("w1c", 0, 32)] + ([("w1x", 0, 64)] if has_x
+                                               else [])
     return np.concatenate([
-        image(nh, 128, first), image(nh, nh, [("w2", 0)]),
-        image(ns, nh, [("wof", 0)]), image(nh, ns, [("wd", 0)]),
-        image(nh, nh, [("wd2", 0)])])
+        _image(offset, total, nh, 128, first, True),
+        _image(offset, total, nh, nh, [("w2", 0, 0)], True),
+        _image(offset, total, ns, nh, [("wof", 0, 0)], True),
+        _image(offset, total, nh, ns, [("wd", 0, 0)], True),
+        _image(offset, total, nh, nh, [("wd2", 0, 0)], True)])
 
 
 @functools.lru_cache(maxsize=None)
-def _k1_index_on(H, SC, F, has_x, device):
-    return torch.from_numpy(k1_image_index(H, SC, F, has_x)).to(device)
+def k2_image_index(H: int, SC: int, F: int, has_x: bool,
+                   recompute: bool) -> np.ndarray:
+    """The same for the bf16 wgmma row pass (``plan.k2_chunks``): K2 first
+    K1's images (``k1_image_index``), then, for K2 and K3, the cotangent
+    products' B = w as stored [N, K], zero-padded to the wgmma widths:
+    wd2, wd, wof, w2, and [w1s; w1c; w1x] with w1s at row 0, w1c at 32 and
+    w1x at 64 of ``plan.K2_ENC``."""
+    offset, total = _source_offsets(H, SC, F, has_x)
+    nh, ns = plan.k1_wgmma_width(H), plan.k1_wgmma_width(SC)
+    w1 = [("w1s", 0, 0), ("w1c", 32, 0)] + ([("w1x", 64, 0)] if has_x
+                                            else [])
+    bwd = [_image(offset, total, nh, nh, [("wd2", 0, 0)], False),
+           _image(offset, total, ns, nh, [("wd", 0, 0)], False),
+           _image(offset, total, nh, ns, [("wof", 0, 0)], False),
+           _image(offset, total, nh, nh, [("w2", 0, 0)], False),
+           _image(offset, total, plan.K2_ENC, nh, w1, False)]
+    fwd = [k1_image_index(H, SC, F, has_x)] if recompute else []
+    return np.concatenate(fwd + bwd)
 
 
-def k1_images(weights: dict, pl: dict, cd=torch.bfloat16):
-    """bf16 K1's weight images, packed once per call (``k1_image_index``):
-    one concatenation of the weights in ``cd`` and one gather."""
+@functools.lru_cache(maxsize=None)
+def _index_on(index_fn, device, *args):
+    return torch.from_numpy(index_fn(*args)).to(device)
+
+
+def _pack_images(weights: dict, index_fn, extra: tuple, want_bytes: int,
+                 name: str, cd=torch.bfloat16):
+    """Weight images packed once per call: one concatenation of the
+    weights in ``cd`` and one gather through ``index_fn(H, SC, F, has_x,
+    *extra)`` (``k1_image_index`` or ``k2_image_index``)."""
     h, sc = weights["wof"].shape
     F = weights["w1s"].shape[0] // 3
     has_x = weights["w1x"] is not None
     srcs = [weights[k].detach().to(cd).reshape(-1) for k in _K1_SOURCES
             if weights[k] is not None]
     flat = torch.cat(srcs + [srcs[0].new_zeros(1)])
-    img = flat[_k1_index_on(h, sc, F, has_x, flat.device)]
-    if img.numel() * img.element_size() != pl["image_bytes"]:
-        raise ValueError(f"K1's weight images hold "
+    img = flat[_index_on(index_fn, flat.device, h, sc, F, has_x, *extra)]
+    if img.numel() * img.element_size() != want_bytes:
+        raise ValueError(f"{name}'s weight images hold "
                          f"{img.numel() * img.element_size()} B, the plan "
-                         f"{pl['image_bytes']} B")
+                         f"{want_bytes} B")
     return img
+
+
+def k1_images(weights: dict, pl: dict, cd=torch.bfloat16):
+    """bf16 K1's weight images (``k1_image_index``)."""
+    return _pack_images(weights, k1_image_index, (), pl["image_bytes"], "K1",
+                        cd)
+
+
+def k2_images(weights: dict, pl: dict, cd=torch.bfloat16):
+    """The wgmma row pass's weight images (``k2_image_index``)."""
+    return _pack_images(weights, k2_image_index, (pl["recompute"],),
+                        pl["rows"]["image_bytes"],
+                        "K2" if pl["recompute"] else "K3", cd)
 
 
 # bf16 K1's inputs before the images, in its argument order
@@ -589,6 +656,8 @@ def _bwd_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.trunk_bwd_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     lib.trunk_bwd_rows.restype = i32
+    lib.trunk_bwd_wgmma.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.trunk_bwd_wgmma.restype = i32
     lib.trunk_bwd_xtg.argtypes = [ptr, i32, i32, ptr]
     lib.trunk_bwd_xtg.restype = i32
     lib.trunk_bwd_sum.argtypes = [ptr, i32, ptr]
@@ -599,9 +668,16 @@ def _bwd_lib():
 
 
 ACT_KEYS = ("h1", "h2", "feat", "v1", "v2")
+# the wgmma row pass's inputs before the images, in its argument order
+_BWD_KEYS = ("pts", "zs1p", "featp", "dirp", "bands", "b1", "bd2", "wos",
+             "wr", "g")
+
+# K2's and K3's plans by shape (read only)
+_k2_plan = functools.lru_cache(maxsize=64)(plan.k2_plan)
 
 
-def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
+def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype,
+                    need_dw):
     name = "K3" if acts is not None else "K2"
     cd = _compute_type(name, compute_dtype)
     f32 = torch.float32
@@ -612,19 +688,12 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
     h0, sc0 = weights["wof"].shape
     F = weights["w1s"].shape[0] // 3
     has_x = weights["w1x"] is not None
+    pl = _k2_plan(R, S, h0, sc0, F, has_x, cd.itemsize,
+                  _sm_count(dev.index), acts is not None)
     # widths that are not multiples of 32 run zero-padded (``pad_trunk``)
-    h, sc = (plan.padded(n, plan.TRUNK_MULTIPLE) for n in (h0, sc0))
+    h, sc = pl["h"], pl["sc"]
     per_ray, weights, b1, acts = pad_trunk(per_ray, weights, b1, acts, h, sc)
-    n_sm = _sm_count(dev.index)
-    pl = plan.trunk_bwd_plan(R, S, h, sc, F, has_x, cd.itemsize, n_sm,
-                             stored=acts is not None)
-    ins = _trunk_inputs(name, pts, per_ray, b1, weights, cd, pl["kp"])
-    M, EW, G = R * S, pl["enc_width"], pl["rows"]["grid"]
-    ins["g"] = _operand(g.to(f32).contiguous(), f32, (R, S, 4), "g", dev,
-                        name)
-    # the backward's three encode products as one: [w1s; w1c; w1x]
-    ins["w1b"] = torch.cat([ins[k] for k in ("w1s", "w1c", "w1x")
-                            if ins[k] is not None])
+    M, EW, rp = R * S, pl["enc_width"], pl["rows"]
     width = {k: sc if k == "feat" else h for k in ACT_KEYS}
     lib = _bwd_lib()
     f32_flag = int(cd == f32)
@@ -632,58 +701,105 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
     def new(*shape, dtype=cd):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    def nothing(keys):
+        return {k: None for k in keys}
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if acts is None:
-            # K2's row pass runs the forward again and stores h1 h2 feat v1
-            # for the dW products
-            acts = {k: None if k == "v2" else new(M, width[k])
-                    for k in ACT_KEYS}
-        else:
+        if acts is not None:
             acts = {k: _operand(acts[k], cd, (M, width[k]), k, dev, name)
                     for k in ACT_KEYS}
         outs = {"g_pts": new(R, S, 3, dtype=f32),
                 "zs1p": new(R, h, dtype=f32), "featp": new(R, sc, dtype=f32),
                 "sigp": new(R, 1, dtype=f32), "dirp": new(R, h, dtype=f32),
-                "zt1p": new(R, 3, dtype=f32), "enc": new(M, EW)}
-        cot = {k: new(M, width[k]) for k in ACT_KEYS}
-        small = new(G, pl["small_width"], dtype=f32)
-        rp = pl["rows"]
-        err = lib.trunk_bwd_rows(
-            _ptrs([ins[k] for k in (*_IN_KEYS, "w1b", "g")]
-                  + [acts[k] for k in ACT_KEYS]),
-            _ptrs(list(outs.values()) + [cot[k] for k in ACT_KEYS]
-                  + [small]),
-            (ctypes.c_int * 9)(R, S, h, sc, F, rp["smem"], rp["tile_rows"],
-                               G, EW), f32_flag, int(pl["recompute"]), stream)
+                "zt1p": new(R, 3, dtype=f32)}
+        g = _operand(g.to(f32).contiguous(), f32, (R, S, 4), "g", dev, name)
+        if pl["route"] == "wgmma":
+            ins = _row_inputs(name, pts, per_ray, b1, weights, cd)
+            ins["g"] = g
+            ins["img"] = k2_images(weights, pl, cd)
+            given = acts or nothing(ACT_KEYS)
+            if need_dw:
+                enc = new(M, EW)
+                if acts is None:
+                    # K2's row pass stores h1 h2 feat v1 for the dW products
+                    acts = {k: None if k == "v2" else new(M, width[k])
+                            for k in ACT_KEYS}
+                    fwd = [acts[k] for k in ACT_KEYS[:4]]
+                else:
+                    fwd = [None] * 4
+                cot = {k: new(M, width[k]) for k in ACT_KEYS}
+                small = new(pl["small_rows"], pl["small_width"], dtype=f32)
+            else:
+                enc, fwd, cot, small = None, [None] * 4, nothing(ACT_KEYS), None
+            dims = (ctypes.c_longlong * 11)(
+                R, S, h, sc, F, int(has_x), rp["smem"], rp["grid"], rp["nh"],
+                rp["ns"], rp["image_bytes"])
+            err = lib.trunk_bwd_wgmma(
+                _ptrs([ins[k] for k in (*_BWD_KEYS, "img")]
+                      + [given[k] for k in ("h1", "h2", "v1", "v2")]),
+                _ptrs(list(outs.values()) + [enc] + fwd
+                      + [cot[k] for k in ACT_KEYS] + [small]),
+                dims, int(pl["recompute"]), int(need_dw), stream)
+        else:
+            ins = _trunk_inputs(name, pts, per_ray, b1, weights, cd, pl["kp"])
+            ins["g"] = g
+            # the backward's three encode products as one: [w1s; w1c; w1x]
+            ins["w1b"] = torch.cat([ins[k] for k in ("w1s", "w1c", "w1x")
+                                    if ins[k] is not None])
+            if acts is None:
+                # K2's row pass runs the forward again and stores h1 h2
+                # feat v1 (its masks read h1 and h2 back)
+                acts = {k: None if k == "v2" else new(M, width[k])
+                        for k in ACT_KEYS}
+            enc = new(M, EW)
+            cot = {k: new(M, width[k]) for k in ACT_KEYS}
+            small = new(pl["small_rows"], pl["small_width"], dtype=f32)
+            err = lib.trunk_bwd_rows(
+                _ptrs([ins[k] for k in (*_IN_KEYS, "w1b", "g")]
+                      + [acts[k] for k in ACT_KEYS]),
+                _ptrs(list(outs.values()) + [enc]
+                      + [cot[k] for k in ACT_KEYS] + [small]),
+                (ctypes.c_int * 9)(R, S, h, sc, F, rp["smem"],
+                                   rp["tile_rows"], rp["grid"], EW),
+                f32_flag, int(pl["recompute"]), stream)
         _check(err, name, lib.trunk_bwd_error_string, "row pass launch")
 
-        # the dW products: [sin | cos | x]^T g_h1, h1^T g_h2, h2^T g_feat,
-        # feat^T g_v1, v1^T g_v2
-        gemm = pl["gemm"]
-        pairs = ((outs["enc"], EW, cot["h1"], h),
-                 (acts["h1"], h, cot["h2"], h),
-                 (acts["h2"], h, cot["feat"], sc),
-                 (acts["feat"], sc, cot["v1"], h),
-                 (acts["v1"], h, cot["v2"], h))
-        dws = [new(p["kd"], p["nd"], dtype=f32) for p in gemm["products"]]
-        part = new(gemm["part_floats"], dtype=f32)
-        rows = plan.xtg_rows(gemm, [(a.data_ptr(), lda, b.data_ptr(), ldb,
-                                     d.data_ptr()) for (a, lda, b, ldb), d
-                                    in zip(pairs, dws)], part.data_ptr())
-        err = lib.trunk_bwd_xtg((ctypes.c_longlong * len(rows))(*rows),
-                                len(dws), f32_flag, stream)
-        _check(err, name, lib.trunk_bwd_error_string, "dW product launch")
-        narrow = new(pl["small_width"], dtype=f32)
-        err = lib.trunk_bwd_sum((ctypes.c_longlong * 4)(
-            small.data_ptr(), narrow.data_ptr(), G, pl["small_width"]), 1,
-            stream)
-        _check(err, name, lib.trunk_bwd_error_string, "slab sum launch")
+        if need_dw:
+            # the dW products: [sin | cos | x]^T g_h1, h1^T g_h2,
+            # h2^T g_feat, feat^T g_v1, v1^T g_v2
+            gemm = pl["gemm"]
+            pairs = ((enc, EW, cot["h1"], h),
+                     (acts["h1"], h, cot["h2"], h),
+                     (acts["h2"], h, cot["feat"], sc),
+                     (acts["feat"], sc, cot["v1"], h),
+                     (acts["v1"], h, cot["v2"], h))
+            dws = [new(p["kd"], p["nd"], dtype=f32)
+                   for p in gemm["products"]]
+            part = new(gemm["part_floats"], dtype=f32)
+            rows = plan.xtg_rows(
+                gemm, [(a.data_ptr(), lda, b.data_ptr(), ldb, d.data_ptr())
+                       for (a, lda, b, ldb), d in zip(pairs, dws)],
+                part.data_ptr())
+            err = lib.trunk_bwd_xtg((ctypes.c_longlong * len(rows))(*rows),
+                                    len(dws), f32_flag, stream)
+            _check(err, name, lib.trunk_bwd_error_string,
+                   "dW product launch")
+            narrow = new(pl["small_width"], dtype=f32)
+            err = lib.trunk_bwd_sum((ctypes.c_longlong * 4)(
+                small.data_ptr(), narrow.data_ptr(), pl["small_rows"],
+                pl["small_width"]), 1, stream)
+            _check(err, name, lib.trunk_bwd_error_string, "slab sum launch")
     if name == "K3":
         trunk_backward.launches_stored += 1
     else:
         trunk_backward.launches_recompute += 1
+    trunk_backward.route = pl["route"]
 
+    g_per_ray = {k: outs[k] for k in PER_RAY_KEYS}
+    if not need_dw:
+        return unpad_trunk_grads((outs["g_pts"], g_per_ray, None, None),
+                                 h0, sc0)
     # the encode product's rows: sin, cos, x, then the ones' row (db1)
     kp, F3 = pl["kp"], 3 * F
     w1 = dws[0]
@@ -693,29 +809,39 @@ def _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts, compute_dtype):
           "wos": narrow[:h].view(h, 1), "wr": narrow[h:4 * h].view(h, 3),
           "bd2": narrow[4 * h:5 * h]}
     db1 = w1[2 * kp + 3]
-    g_per_ray = {k: outs[k] for k in PER_RAY_KEYS}
     return unpad_trunk_grads((outs["g_pts"], g_per_ray, db1, dw), h0, sc0)
 
 
 def trunk_backward(pts, per_ray: dict, b1, weights: dict, g,
-                   acts: dict | None = None, *, compute_dtype=None):
+                   acts: dict | None = None, *, compute_dtype=None,
+                   need_dw: bool = True):
     """Grads of the trunk for the cotangent g [R, S, 4]: (g_pts, per-ray
-    grads, db1, weight grads), as ``trunk_backward_plain`` returns them.
-    Launches K2, or K3 when the forward's activations ``acts`` are given,
-    for CUDA tensors (bf16 or f32 compute; widths that are not multiples
-    of 32 run zero-padded, ``pad_trunk``), and runs the plain version for
-    CPU tensors."""
+    grads, db1, weight grads), as ``trunk_backward_plain`` returns them
+    (db1 and the weight grads None without ``need_dw``).  Launches K2, or
+    K3 when the forward's activations ``acts`` are given, for CUDA tensors
+    and runs the plain version for CPU tensors.
+
+    ``plan.k2_plan`` picks the row pass by shape before anything launches
+    (widths that are not multiples of 32 run zero-padded, ``pad_trunk``):
+    bf16 at padded widths up to ``plan.K1_MAX_WIDTH`` with at most
+    ``plan.K1_MAX_BANDS`` bands runs the wgmma row pass, which without
+    ``need_dw`` writes no dW operand; f32 and the wider bf16 shapes run
+    ``trunk_bwd_rows_kernel``.  With ``need_dw`` the dW products
+    (``csrc/xtg.cuh``) and the narrow grads' slab sum follow; without it
+    neither launches."""
     if pts.device.type == "cuda":
         return _trunk_bwd_cuda(pts, per_ray, b1, weights, g, acts,
-                               compute_dtype)
+                               compute_dtype, need_dw)
     if pts.device.type == "cpu":
         return trunk_backward_plain(pts, per_ray, b1, weights, g, acts,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    need_dw=need_dw)
     raise ValueError(f"no K2 / K3 for device {pts.device}")
 
 
 trunk_backward.launches_recompute = 0
 trunk_backward.launches_stored = 0
+trunk_backward.route = None      # the last CUDA call's row pass
 
 # the trunk Functions' tensor arguments after pts, in order
 _FN_KEYS = (*PER_RAY_KEYS, "b1", "w1x", "w1s", "w1c", "E", *WEIGHT_KEYS)
@@ -742,15 +868,24 @@ def _cast_weights(named, cd):
     return out
 
 
+def _need_dw(ctx) -> bool:
+    """Whether any of b1 and the weights wants a gradient: a frozen trunk
+    (TTO, validation) asks for none, and its backward computes none."""
+    first = 2 + len(PER_RAY_KEYS)          # after cd, pts, the per-ray rows
+    return any(ctx.needs_input_grad[first:first + len(_FN_KEYS)
+                                    - len(PER_RAY_KEYS)])
+
+
 def _grads(per_ray, named, g_pts, g_per_ray, db1, dw):
-    """The Functions' backward outputs, one per forward argument."""
+    """The Functions' backward outputs, one per forward argument (None
+    for b1 and the weights when ``dw`` is None)."""
     out = [None, g_pts]
     out += [g_per_ray[k].to(per_ray[k].dtype) for k in PER_RAY_KEYS]
     for k in _FN_KEYS[len(PER_RAY_KEYS):]:
-        if k == "b1":
-            out.append(db1)
-        elif k == "E" or named[k] is None:
+        if dw is None or k == "E" or named[k] is None:
             out.append(None)
+        elif k == "b1":
+            out.append(db1)
         else:
             out.append(dw[k].reshape(named[k].shape))
     return tuple(out)
@@ -760,7 +895,9 @@ class TrunkFunction(torch.autograd.Function):
     """The fused trunk with JAX ``make_fused_codenerf(pallas_backward=True)``
     semantics: K1 forward, K2 backward (their plain versions for CPU
     tensors).  Grads flow to pts, the five per-ray rows, b1 and the
-    weights; the encode matrix E gets none."""
+    weights; the encode matrix E gets none.  When none of b1 and the
+    weights needs a gradient (a frozen model), K2 runs without
+    ``need_dw``."""
 
     @staticmethod
     def forward(ctx, cd, pts, *args):
@@ -777,7 +914,7 @@ class TrunkFunction(torch.autograd.Function):
         per_ray, named = _split_args(args)
         weights = _cast_weights(named, ctx.cd)
         res = trunk_backward(pts, per_ray, weights["b1"], weights, g,
-                             compute_dtype=ctx.cd)
+                             compute_dtype=ctx.cd, need_dw=_need_dw(ctx))
         return _grads(per_ray, named, *res)
 
 
@@ -785,7 +922,7 @@ class HybridTrunkFunction(torch.autograd.Function):
     """The trunk with JAX ``make_hybrid_codenerf`` semantics: the plain
     forward of ``xla_trunk``, which stores h1 h2 feat v1 v2 in the compute
     dtype, and K3 backward through them (its plain version for CPU
-    tensors)."""
+    tensors); without ``need_dw`` for a frozen model, as K2."""
 
     @staticmethod
     def forward(ctx, cd, pts, *args):
@@ -806,7 +943,7 @@ class HybridTrunkFunction(torch.autograd.Function):
         weights = _cast_weights(named, ctx.cd)
         acts = dict(zip(ACT_KEYS, act_list))
         res = trunk_backward(pts, per_ray, weights["b1"], weights, g, acts,
-                             compute_dtype=ctx.cd)
+                             compute_dtype=ctx.cd, need_dw=_need_dw(ctx))
         return _grads(per_ray, named, *res)
 
 

@@ -41,6 +41,11 @@ K1_RAYS = 4                 # bf16 K1: rays of per-ray rows staged per tile
 K1_MAX_BANDS = 10           # bf16 K1: the encode's 3 F arguments fit 32
                             # columns (sin at 0, cos at 32, x at 64); more
                             # bands take the row-tile forward, as above
+K2_STAGES = 3               # bf16 K2 / K3 row pass: weight chunks in
+                            # flight (shared memory under 196 KB)
+K2_ENC = 80                 # bf16 K2 / K3 row pass: the encode product's
+                            # N and the dW encode's columns, K1's layout
+                            # (sin at 0, cos at 32, x at 64, ones at 67)
 
 
 def padded(n: int, multiple: int) -> int:
@@ -256,6 +261,18 @@ def xtg_plan(products, elem: int, n_sm: int) -> dict:
             "smem": smem, "tile": (bk, bn)}
 
 
+def _dw_gemm(R: int, S: int, H: int, SC: int, enc_width: int, elem: int,
+             n_sm: int) -> dict:
+    """The five dW products of K2 / K3 (``xtg_plan``): the encode against
+    g_h1, then h1 h2 feat v1 against g_h2 g_feat g_v1 g_v2."""
+    names = ("w1", "w2", "wof", "wd", "wd2")
+    shapes = ((enc_width, H), (H, H), (H, SC), (SC, H), (H, H))
+    gemm = xtg_plan([(R * S, kd, nd) for kd, nd in shapes], elem, n_sm)
+    for name, p in zip(names, gemm["products"]):
+        p["name"] = name
+    return gemm
+
+
 def trunk_bwd_plan(R: int, S: int, H: int, SC: int, F: int, has_x: bool,
                    elem: int, n_sm: int, stored: bool) -> dict:
     """K2 (``stored`` False) or K3: the row pass (K2's runs the forward
@@ -275,17 +292,115 @@ def trunk_bwd_plan(R: int, S: int, H: int, SC: int, F: int, has_x: bool,
     grid = min(R, n_sm * blocks_per_sm(smem, 2))
     kp = kp_of(F)
     enc_width = 2 * kp + KX     # sin | cos | x (3) and a column of ones
-    M = R * S
-    names = ("w1", "w2", "wof", "wd", "wd2")
-    shapes = ((enc_width, H), (H, H), (H, SC), (SC, H), (H, H))
-    gemm = xtg_plan([(M, kd, nd) for kd, nd in shapes], elem, n_sm)
-    for name, p in zip(names, gemm["products"]):
-        p["name"] = name
     return {"recompute": not stored,
             "rows": {"tile_rows": tm, "smem": smem, "grid": grid,
                      "ray_ranges": even_ranges(R, grid)},
             "enc_width": enc_width, "kp": kp, "small_width": 5 * H,
-            "gemm": gemm}
+            "small_rows": grid,
+            "gemm": _dw_gemm(R, S, H, SC, enc_width, elem, n_sm)}
+
+
+def k2_chunks(H: int, SC: int, recompute: bool) -> list:
+    """The weight chunks the bf16 wgmma row pass streams for every tile, in
+    the order its chain reads them: (layer, byte offset in the packed
+    image, bytes).  K2 first streams K1's (``k1_chunks``, its forward
+    again); then K2 and K3 stream the cotangent products g @ w^T, each
+    with B = w as stored [N, K] (N the product's output width), padded to
+    the wgmma widths and cut into chunks of 64 reduction columns, N rows of
+    128 bytes: wd2 (g_v1), wd (g_feat), wof (g_h2), w2 (g_h1) and the
+    stacked [w1s; w1c; w1x] (g_sn, g_cs, g_x at rows 0, 32 and 64 of
+    ``K2_ENC``)."""
+    nh, ns = k1_wgmma_width(H), k1_wgmma_width(SC)
+    out = k1_chunks(H, SC) if recompute else []
+    off = out[-1][1] + out[-1][2] if out else 0
+    layers = (("d_wd2", nh, nh), ("d_wd", ns, nh), ("d_wof", nh, ns),
+              ("d_w2", nh, nh), ("d_w1", K2_ENC, nh))
+    for name, n, k in layers:
+        for _ in range(k // K1_CHUNK_K):
+            out.append((name, off, n * 128))
+            off += n * 128
+    return out
+
+
+def k2_smem(H: int, SC: int, recompute: bool) -> int:
+    """The bf16 wgmma row pass's shared memory, in the kernel's order: the
+    weight ring (``K2_STAGES`` of K1's stages), one activation buffer per
+    warpgroup (every
+    operand of the chain in turn, the encode, the cotangents and the
+    encode product's [g_sn | g_cs | g_x]), each warpgroup's 64 points
+    (f32) and 64 rows of g (f32 [64, 4]), wr's three columns and wos (f32
+    [4, NH]), each warpgroup's relu masks of h1, h2 and v1 (bits, NH / 64
+    words a thread each; v2's stays in registers); K2 also b1 and bd2 and
+    the staged per-ray rows, as K1; the ring's mbarriers and the
+    1024-byte alignment slack."""
+    nh, ns = k1_wgmma_width(H), k1_wgmma_width(SC)
+    nm = max(nh, ns)
+    fwd = 2 * nh * 2 + 2 * K1_RAYS * (2 * nh + ns) * 2 if recompute else 0
+    masks = 2 * 3 * (nh // 64) * 128 * 4
+    return (K2_STAGES * nm * 128 + 2 * 64 * nm * 2 + 2 * 64 * 3 * 4
+            + 2 * 64 * 16 + 4 * nh * 4 + masks + fwd + 2 * K2_STAGES * 8
+            + 1024)
+
+
+def trunk_bwd_wgmma_plan(R: int, S: int, H: int, SC: int, F: int,
+                         n_sm: int, stored: bool) -> dict:
+    """bf16 K2 (``stored`` False) or K3 at padded widths up to
+    ``K1_MAX_WIDTH`` and at most ``K1_MAX_BANDS`` bands: the wgmma row pass
+    (a persistent grid of at most one block per SM; the block's two
+    consumer warpgroups each own whole rays, ``even_ranges(R, 2 grid)``
+    [2 b + w], walked in 64-row tiles, ``lane_tiles`` of them, the block's
+    ``tiles`` the larger count of its two), then the dW products of
+    ``xtg_plan`` (with ``need_dw``).  The dW encode is K1's: ``K2_ENC``
+    columns, sin at 0, cos at ``kp`` = 32, x at 64 and the ones at 67."""
+    for name, n in (("hidden", H), ("code", SC)):
+        if n % 32 or not 32 <= n <= K1_MAX_WIDTH:
+            raise ValueError(
+                f"the wgmma row pass needs a {name} width that is a multiple "
+                f"of 32 and at most {K1_MAX_WIDTH} (K1_MAX_WIDTH), got {n}")
+    if not 1 <= F <= K1_MAX_BANDS:
+        raise ValueError(f"the wgmma row pass encodes at most {K1_MAX_BANDS} "
+                         f"bands (K1_MAX_BANDS), got {F}")
+    if R < 1 or S < 1:
+        raise ValueError(f"the trunk backward needs at least one sample, got "
+                         f"R={R}, S={S}")
+    recompute = not stored
+    smem = k2_smem(H, SC, recompute)
+    _check_smem(f"the wgmma row pass at h={H}, s={SC}", smem)
+    grid = min(n_sm, R)
+    lanes = even_ranges(R, 2 * grid)
+    rows = K1_TILE // 2         # a warpgroup's tile
+    lane_tiles = [-(-(r1 - r0) * S // rows) for r0, r1 in lanes]
+    chunks = k2_chunks(H, SC, recompute)
+    kp = 32                     # the encode's sin block (K1's)
+    return {"recompute": recompute, "route": "wgmma",
+            "rows": {"tile_rows": rows, "smem": smem, "grid": grid,
+                     "ray_ranges": lanes, "lane_tiles": lane_tiles,
+                     "tiles": [max(lane_tiles[2 * b], lane_tiles[2 * b + 1])
+                               for b in range(grid)],
+                     "nh": k1_wgmma_width(H), "ns": k1_wgmma_width(SC),
+                     "chunks": chunks,
+                     "image_bytes": chunks[-1][1] + chunks[-1][2]},
+            "enc_width": K2_ENC, "kp": kp, "small_width": 5 * H,
+            "small_rows": 2 * grid,
+            "gemm": _dw_gemm(R, S, H, SC, K2_ENC, 2, n_sm)}
+
+
+def k2_plan(R: int, S: int, H: int, SC: int, F: int, has_x: bool, elem: int,
+            n_sm: int, stored: bool) -> dict:
+    """K2's (K3's with ``stored``) launch, chosen by shape before any
+    launch, as ``k1_plan`` chooses K1's: the widths padded to
+    ``TRUNK_MULTIPLE`` ("h", "sc"), and the route.  bf16 at padded widths
+    up to ``K1_MAX_WIDTH`` with at most ``K1_MAX_BANDS`` bands runs the
+    wgmma row pass ("wgmma", ``trunk_bwd_wgmma_plan``); f32 and the wider
+    bf16 shapes the row-tile pass of ``trunk_bwd_rows_kernel`` ("rows",
+    ``trunk_bwd_plan``)."""
+    h, sc = padded(H, TRUNK_MULTIPLE), padded(SC, TRUNK_MULTIPLE)
+    if (elem == 2 and max(h, sc) <= K1_MAX_WIDTH
+            and 1 <= F <= K1_MAX_BANDS):
+        return dict(trunk_bwd_wgmma_plan(R, S, h, sc, F, n_sm, stored),
+                    h=h, sc=sc)
+    return dict(trunk_bwd_plan(R, S, h, sc, F, has_x, elem, n_sm, stored),
+                route="rows", h=h, sc=sc)
 
 
 def layer_bwd_smem(K: int, N: int, elem: int, w_in_smem: bool,
