@@ -9,7 +9,9 @@ util.py:59-90).
   * ``PrefetchIterator`` decodes the next batches on a thread while the
     device steps and, for a CUDA device, ships them there itself: from
     pinned memory, on a stream of the thread's own, with an event the
-    consumer's stream waits on before first use.
+    consumer's stream waits on before first use.  Its spans
+    (``utils/trace.py``): ``loader.wait`` around the consumer's wait on
+    the queue, ``loader.load`` and ``loader.ship`` on the thread.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from codenerf_tpu_torch.data.blender import BlenderNeRFDataset
 from codenerf_tpu_torch.data.llff import LLFFDataset
 from codenerf_tpu_torch.data.srn import SRNDataset
+from codenerf_tpu_torch.utils import trace
 
 DATASET_REGISTRY = {
     "SRNDataset": SRNDataset,
@@ -144,9 +147,11 @@ class PrefetchIterator:
             if self._device is not None and self._device.type == "cuda":
                 stream = torch.cuda.Stream(self._device)
             while not self._stop.is_set():
-                item = next(self._it)
+                with trace.span("loader.load"):
+                    item = next(self._it)
                 if self._device is not None:
-                    item = self._ship(item, stream)
+                    with trace.span("loader.ship"):
+                        item = self._ship(item, stream)
                 if not self._put(item):
                     return
         except Exception as e:  # raised again on the consumer's side
@@ -157,7 +162,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with trace.span("loader.wait"):
+            item = self._q.get()
         if item is None:
             raise self._err
         if self._device is None:

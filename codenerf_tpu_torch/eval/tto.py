@@ -48,6 +48,12 @@ gradients and the metrics.  The code regularizer keeps the global R
 (sqrt(R) ||z|| in the batched steps, the norm of codes expanded to R
 rows in the single step); its gradient is added after the all-reduce,
 once on every rank.
+
+Spans (``utils/trace.py``, recorded only while tracing is on): each
+step's root ``tto.step`` with the state's step, and under it
+``tto.forward``, ``tto.backward`` (the data loss's, then the
+regularizer's), ``tto.allreduce`` with a world and ``tto.optimizer``;
+``setup.state`` around each ``init_*tto_state``.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from codenerf_tpu_torch.pipeline import (RenderSettings, draw_train_randoms,
 from codenerf_tpu_torch.train.optim import (build_se3_refine_optimizer,
                                             build_tto_optimizer)
 from codenerf_tpu_torch.train.step import gather_ray_batch
+from codenerf_tpu_torch.utils import trace
 
 POSE_INIT = (1.57, 0.0, 1.30)
 
@@ -131,10 +138,11 @@ def init_tto_state(code_tables, opt_cfg, pose_init=POSE_INIT,
     """(state, optimizer): codes = table means [1, C], pose =
     ``pose_init`` (theta, phi, rho) as [1] tensors (eval.py:126-131), on
     ``device``."""
-    dev = resolve_device(device)
-    variables = _code_leaves(code_tables, None, dev)
-    variables.update(_pose_leaves(pose_init, (1,), dev))
-    optimizer = build_tto_optimizer(opt_cfg, variables)
+    with trace.span("setup.state"):
+        dev = resolve_device(device)
+        variables = _code_leaves(code_tables, None, dev)
+        variables.update(_pose_leaves(pose_init, (1,), dev))
+        optimizer = build_tto_optimizer(opt_cfg, variables)
     return TTOState(variables, optimizer), optimizer
 
 
@@ -142,10 +150,11 @@ def init_batched_tto_state(code_tables, opt_cfg, num_objects: int,
                            pose_init=POSE_INIT, device="cuda"):
     """(state, optimizer) for K objects: codes [K, C], pose [K] each.
     ``pose_init`` entries are scalars (a shared init) or [K] arrays."""
-    dev = resolve_device(device)
-    variables = _code_leaves(code_tables, num_objects, dev)
-    variables.update(_pose_leaves(pose_init, (num_objects,), dev))
-    optimizer = build_tto_optimizer(opt_cfg, variables)
+    with trace.span("setup.state"):
+        dev = resolve_device(device)
+        variables = _code_leaves(code_tables, num_objects, dev)
+        variables.update(_pose_leaves(pose_init, (num_objects,), dev))
+        optimizer = build_tto_optimizer(opt_cfg, variables)
     return TTOState(variables, optimizer), optimizer
 
 
@@ -156,10 +165,12 @@ def init_multiview_tto_state(code_tables, opt_cfg, num_objects: int,
     object, pose [K, V] per view.  ``pose_init`` entries are scalars or
     arrays broadcast to [K, V] as JAX broadcasts them (a 1-D array runs
     along the last axis)."""
-    dev = resolve_device(device)
-    variables = _code_leaves(code_tables, num_objects, dev)
-    variables.update(_pose_leaves(pose_init, (num_objects, num_views), dev))
-    optimizer = build_tto_optimizer(opt_cfg, variables)
+    with trace.span("setup.state"):
+        dev = resolve_device(device)
+        variables = _code_leaves(code_tables, num_objects, dev)
+        variables.update(_pose_leaves(pose_init, (num_objects, num_views),
+                                      dev))
+        optimizer = build_tto_optimizer(opt_cfg, variables)
     return TTOState(variables, optimizer), optimizer
 
 
@@ -226,11 +237,16 @@ def _update(state, data_loss, losses, loss_e, world):
     """Backpropagate this rank's ``data_loss``, sum the variables'
     gradients and the ``losses`` over ``world``'s ranks, add the
     regularizer ``loss_e``'s gradient, and step the state's optimizer."""
-    data_loss.backward()
-    all_reduce_grads(world, state.variables.values())
-    all_reduce_(world, losses)
-    loss_e.backward()
-    state.optimizer.step()
+    with trace.span("tto.backward"):
+        data_loss.backward()
+    if world is not None:
+        with trace.span("tto.allreduce"):
+            all_reduce_grads(world, state.variables.values())
+            all_reduce_(world, losses)
+    with trace.span("tto.backward"):
+        loss_e.backward()
+    with trace.span("tto.optimizer"):
+        state.optimizer.step()
     state.step += 1
 
 
@@ -261,20 +277,29 @@ def make_tto_step(settings: RenderSettings, optimizer,
 
     def tto_step(state, models, directions, target_image, pose_gt,
                  generator, inds=None, draws=None):
+        with trace.span("tto.step", step=state.step):
+            return _tto_step(state, models, directions, target_image,
+                             pose_gt, generator, inds, draws)
+
+    def _tto_step(state, models, directions, target_image, pose_gt,
+                  generator, inds, draws):
         v = state.variables
         state.optimizer.zero_grad(set_to_none=True)
         with frozen(models):
-            cam_pose = pose_spherical(v["theta"], v["phi"], v["rho"])
-            loss_c, loss_f = _object_losses(
-                models, settings, cam_pose, v["z_s"], v["z_t"],
-                directions.to(dev), target_image.to(dev)[None], generator,
-                R, perturb, None if inds is None else inds.reshape(1, R),
-                draws, world)
-            # reference eval.py:160 regularizes the expanded [R, C] codes
-            loss_e = regularizer_lambda * (
-                torch.linalg.norm(v["z_s"].expand(R, -1))
-                + torch.linalg.norm(v["z_t"].expand(R, -1)))
-            losses = torch.cat([loss_c, loss_f]).detach()
+            with trace.span("tto.forward"):
+                cam_pose = pose_spherical(v["theta"], v["phi"], v["rho"])
+                loss_c, loss_f = _object_losses(
+                    models, settings, cam_pose, v["z_s"], v["z_t"],
+                    directions.to(dev), target_image.to(dev)[None],
+                    generator, R, perturb,
+                    None if inds is None else inds.reshape(1, R), draws,
+                    world)
+                # reference eval.py:160 regularizes the expanded [R, C]
+                # codes
+                loss_e = regularizer_lambda * (
+                    torch.linalg.norm(v["z_s"].expand(R, -1))
+                    + torch.linalg.norm(v["z_t"].expand(R, -1)))
+                losses = torch.cat([loss_c, loss_f]).detach()
             _update(state, loss_c[0] + loss_f[0], [losses], loss_e, world)
         perr = lie.pose_error(pose_gt.to(dev), cam_pose[0].detach())
         loss_c, loss_f = losses
@@ -297,21 +322,29 @@ def _make_batched_step(settings, num_random_rays, regularizer_lambda,
 
     def run(state, models, directions, target_images, base_poses, poses_gt,
             generator, inds, draws):
+        with trace.span("tto.step", step=state.step):
+            return _run(state, models, directions, target_images, base_poses,
+                        poses_gt, generator, inds, draws)
+
+    def _run(state, models, directions, target_images, base_poses, poses_gt,
+             generator, inds, draws):
         v = state.variables
         state.optimizer.zero_grad(set_to_none=True)
         with frozen(models):
-            if refine:
-                cam_poses = se3_refined_poses(v, base_poses.to(dev))
-            else:
-                cam_poses = pose_spherical(v["theta"], v["phi"], v["rho"])
-            lead = cam_poses.shape[:-2]                  # [K] or [K, V]
-            loss_c, loss_f = _object_losses(
-                models, settings, cam_poses.reshape(-1, 4, 4), v["z_s"],
-                v["z_t"], directions.to(dev),
-                target_images.to(dev).flatten(0, len(lead) - 1), generator,
-                R, perturb, inds, draws, world)
-            loss_e = _object_code_norms(v, R, regularizer_lambda)
-            losses = torch.stack([loss_c, loss_f]).detach()
+            with trace.span("tto.forward"):
+                if refine:
+                    cam_poses = se3_refined_poses(v, base_poses.to(dev))
+                else:
+                    cam_poses = pose_spherical(v["theta"], v["phi"],
+                                               v["rho"])
+                lead = cam_poses.shape[:-2]              # [K] or [K, V]
+                loss_c, loss_f = _object_losses(
+                    models, settings, cam_poses.reshape(-1, 4, 4), v["z_s"],
+                    v["z_t"], directions.to(dev),
+                    target_images.to(dev).flatten(0, len(lead) - 1),
+                    generator, R, perturb, inds, draws, world)
+                loss_e = _object_code_norms(v, R, regularizer_lambda)
+                losses = torch.stack([loss_c, loss_f]).detach()
             _update(state, torch.sum(loss_c + loss_f), [losses],
                     torch.sum(loss_e), world)
             loss_c, loss_f = losses

@@ -19,11 +19,16 @@ alone writes checkpoints and logs, with a barrier before the call
 returns.
 ``runtime.profile_dir`` records a ``torch.profiler`` trace of steps
 [start + 5, start + 10) as a Chrome trace, the counterpart of
-``jax.profiler``.
+``jax.profiler``, with the port's spans (``utils/trace.py``: the steps'
+phases, the loader's, and this loop's ``loop.log``, ``loop.checkpoint``
+and ``loop.validate``) recorded over the same steps and written into it
+as ``program_span`` events on the trace's clock.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import signal
 import time
 from pathlib import Path
@@ -40,6 +45,7 @@ from codenerf_tpu_torch.train.optim import lr_at_step
 from codenerf_tpu_torch.train.state import (broadcast_train_state,
                                             init_train_state)
 from codenerf_tpu_torch.train.step import make_train_step
+from codenerf_tpu_torch.utils import trace
 from codenerf_tpu_torch.utils.logging import MetricLogger, is_main_process
 
 
@@ -49,6 +55,7 @@ def _start_profiler(device: torch.device):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
+    trace.enable()
     return prof
 
 
@@ -56,10 +63,15 @@ def _stop_profiler(prof, device: torch.device, profile_dir: str) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
-    out = Path(profile_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "trace.json"))
-    print(f"profiler trace written to {out / 'trace.json'}")
+    trace.disable()
+    out = Path(profile_dir) / "trace.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    doc = json.loads(out.read_text())
+    doc["traceEvents"] += trace.chrome_events(
+        trace.drain(), doc["baseTimeNanoseconds"], os.getpid())
+    out.write_text(json.dumps(doc))
+    print(f"profiler trace written to {out}")
 
 
 def run_training(cfg: Config, max_steps: Optional[int] = None,
@@ -138,37 +150,41 @@ def run_training(cfg: Config, max_steps: Optional[int] = None,
 
             i = step_idx + 1
             if is_main_process() and i % cfg.experiment.print_every == 0:
-                m = {k: float(v) for k, v in metrics._asdict().items()}
-                dt = time.time() - then
-                lr = lr_at_step(cfg.optimizer.lr,
-                                cfg.optimizer.scheduler_gamma,
-                                cfg.optimizer.scheduler_step_size, i)
-                line = logger.log_scalars("train", i, {
-                    "nerf_loss_coarse": m["loss_coarse"],
-                    "nerf_loss_fine": m["loss_fine"],
-                    "embedding_loss": m["loss_embedding"],
-                    "total_loss": m["loss"],
-                    "psnr": m["psnr"],
-                    "rays_per_sec": rays_per_step
-                    * cfg.experiment.print_every / max(dt, 1e-9)},
-                    time_taken=dt, learning_rate=lr)
-                print(line)
-                # target-image panel, as the reference logs (train.py:126)
-                logger.log_image("train/target_image", i,
-                                 batch["color"][0][..., :3])
+                with trace.span("loop.log"):
+                    m = {k: float(v) for k, v in metrics._asdict().items()}
+                    dt = time.time() - then
+                    lr = lr_at_step(cfg.optimizer.lr,
+                                    cfg.optimizer.scheduler_gamma,
+                                    cfg.optimizer.scheduler_step_size, i)
+                    line = logger.log_scalars("train", i, {
+                        "nerf_loss_coarse": m["loss_coarse"],
+                        "nerf_loss_fine": m["loss_fine"],
+                        "embedding_loss": m["loss_embedding"],
+                        "total_loss": m["loss"],
+                        "psnr": m["psnr"],
+                        "rays_per_sec": rays_per_step
+                        * cfg.experiment.print_every / max(dt, 1e-9)},
+                        time_taken=dt, learning_rate=lr)
+                    print(line)
+                    # target-image panel, as the reference logs
+                    # (train.py:126)
+                    logger.log_image("train/target_image", i,
+                                     batch["color"][0][..., :3])
                 then = time.time()
                 metrics_out = m
 
             if is_main_process() and (i % cfg.experiment.save_every == 0
                                       or i == total_steps):
-                checkpoint.save_checkpoint(ckpt_dir, state)
+                with trace.span("loop.checkpoint"):
+                    checkpoint.save_checkpoint(ckpt_dir, state)
                 print("================== Saved Checkpoint "
                       "=================")
 
             if i % cfg.experiment.validate_every == 0 and i < total_steps:
-                val_m = validate(harness, {**state.models,
-                                           "codes": state.tables},
-                                 logger, i)
+                with trace.span("loop.validate"):
+                    val_m = validate(harness, {**state.models,
+                                               "codes": state.tables},
+                                     logger, i)
                 metrics_out.update({f"val_{k}": v for k, v in val_m.items()})
 
             if interrupted["flag"]:

@@ -13,6 +13,7 @@ from codenerf_tpu_torch.models import CodeNeRFConfig, CodeTables, build_model
 from codenerf_tpu_torch.parallel.mesh import World, broadcast_
 from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train.optim import build_optimizer
+from codenerf_tpu_torch.utils import trace
 
 
 def has_codes(settings: RenderSettings) -> bool:
@@ -45,17 +46,19 @@ def init_train_state(cfg: Config, settings: RenderSettings,
                      device="cuda") -> TrainState:
     """Models (and, for CodeNeRF, code tables) drawn on the CPU from
     ``seed`` and moved to ``device``, with the optimizer and scheduler
-    over them.  To start from the JAX package's parameters, follow with
-    ``weights.params_from_jax`` before the first step."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    models = {"coarse": build_model(settings.coarse_cfg, device, gen),
-              "fine": build_model(settings.fine_cfg, device, gen)}
-    tables = None
-    if has_codes(settings):
-        emb = cfg.models.embedding
-        tables = CodeTables(num_objects, emb.shape_code_size,
-                            emb.texture_code_size, device, gen)
-    optimizer, scheduler = build_optimizer(cfg.optimizer, models, tables)
+    over them, timed as the span ``setup.state``.  To start from the JAX
+    package's parameters, follow with ``weights.params_from_jax`` before
+    the first step."""
+    with trace.span("setup.state"):
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        models = {"coarse": build_model(settings.coarse_cfg, device, gen),
+                  "fine": build_model(settings.fine_cfg, device, gen)}
+        tables = None
+        if has_codes(settings):
+            emb = cfg.models.embedding
+            tables = CodeTables(num_objects, emb.shape_code_size,
+                                emb.texture_code_size, device, gen)
+        optimizer, scheduler = build_optimizer(cfg.optimizer, models, tables)
     return TrainState(models, tables, optimizer, scheduler)
 
 

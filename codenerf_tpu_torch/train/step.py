@@ -27,6 +27,11 @@ the backward the loss and every gradient, after the update every
 parameter, must be finite, else the step raises ``FloatingPointError``
 naming the first bad leaf.  Each check waits for the device once; without
 the flag the step has none.
+
+Spans (``utils/trace.py``, recorded only while tracing is on): the root
+``train.step`` with the step's id, and under it ``train.rays``,
+``train.forward`` and ``train.backward`` per chunk (the regularizer's
+backward too), ``train.allreduce`` with a world, ``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from codenerf_tpu_torch.parallel.mesh import (World, all_reduce_,
 from codenerf_tpu_torch.pipeline import (RenderSettings, draw_train_randoms,
                                          render_rays_train)
 from codenerf_tpu_torch.train.state import TrainState
+from codenerf_tpu_torch.utils import trace
 
 
 class StepMetrics(NamedTuple):
@@ -125,51 +131,64 @@ def make_train_step(settings: RenderSettings, state: TrainState,
 
     def train_step(directions, pose, pixels, object_ids, generator,
                    inds=None, draws=None) -> StepMetrics:
+        with trace.span("train.step", step=state.step):
+            return _train_step(directions, pose, pixels, object_ids,
+                               generator, inds, draws)
+
+    def _train_step(directions, pose, pixels, object_ids, generator, inds,
+                    draws) -> StepMetrics:
         state.optimizer.zero_grad(set_to_none=True)
-        ro, rd, target, ids = gather_ray_batch(
-            directions, pose, pixels, object_ids, generator,
-            num_random_rays, inds)
-        R = ro.shape[0]
-        if R % ray_chunks:
-            raise ValueError(f"ray batch {R} not divisible by ray_chunks="
-                             f"{ray_chunks}")
-        rc = R // ray_chunks
-        ro, rd, target, ids = shard_chunked_rays(
-            world, *(a.reshape(ray_chunks, rc, *a.shape[1:])
-                     for a in (ro, rd, target, ids)))
+        with trace.span("train.rays"):
+            ro, rd, target, ids = gather_ray_batch(
+                directions, pose, pixels, object_ids, generator,
+                num_random_rays, inds)
+            R = ro.shape[0]
+            if R % ray_chunks:
+                raise ValueError(f"ray batch {R} not divisible by "
+                                 f"ray_chunks={ray_chunks}")
+            rc = R // ray_chunks
+            ro, rd, target, ids = shard_chunked_rays(
+                world, *(a.reshape(ray_chunks, rc, *a.shape[1:])
+                         for a in (ro, rd, target, ids)))
         ss = torch.zeros(2, device=ro.device)           # coarse, fine
         for i in range(ray_chunks):
-            d = (draws[i] if draws is not None else draw_train_randoms(
-                settings, rc, generator, perturb, settings.noise_std,
-                ro.dtype, ro.device))
-            z_s = z_t = None
-            if tables is not None:
-                z_s, z_t = lookup_codes(tables, ids[i])
-            out_c, out_f = render_rays_train(
-                models, settings, ro[i], rd[i], z_s, z_t, None, perturb,
-                settings.noise_std,
-                {k: shard_rays(world, v) for k, v in d.items()})
-            c = torch.sum((out_c.rgb - target[i, :, :3]) ** 2)
-            f = torch.sum((out_f.rgb - target[i, :, :3]) ** 2)
-            ((c + f) / (R * 3)).backward()
+            with trace.span("train.forward"):
+                d = (draws[i] if draws is not None else draw_train_randoms(
+                    settings, rc, generator, perturb, settings.noise_std,
+                    ro.dtype, ro.device))
+                z_s = z_t = None
+                if tables is not None:
+                    z_s, z_t = lookup_codes(tables, ids[i])
+                out_c, out_f = render_rays_train(
+                    models, settings, ro[i], rd[i], z_s, z_t, None, perturb,
+                    settings.noise_std,
+                    {k: shard_rays(world, v) for k, v in d.items()})
+                c = torch.sum((out_c.rgb - target[i, :, :3]) ** 2)
+                f = torch.sum((out_f.rgb - target[i, :, :3]) ** 2)
+            with trace.span("train.backward"):
+                ((c + f) / (R * 3)).backward()
             ss = ss + torch.stack([c.detach(), f.detach()])
-        all_reduce_grads(world, params)
-        all_reduce_(world, [ss])
+        if world is not None:
+            with trace.span("train.allreduce"):
+                all_reduce_grads(world, params)
+                all_reduce_(world, [ss])
         loss_c, loss_f = ss[0] / (R * 3), ss[1] / (R * 3)
         # losses per reference train.py:103-108; the regularizer's
         # gradient is added after the all-reduce, once on every rank
         if tables is not None and regularizer_lambda > 0:
             ns, nt = code_table_norms(tables)
             loss_e = regularizer_lambda * (ns + nt)
-            loss_e.backward()
+            with trace.span("train.backward"):
+                loss_e.backward()
             loss_e = loss_e.detach()
         else:
             loss_e = torch.zeros_like(loss_c)
         if use_checkify:
             _check_finite([("loss", loss_c + loss_f + loss_e)]
                          + _named_leaves(state, grads=True))
-        state.optimizer.step()
-        state.scheduler.step()
+        with trace.span("train.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         if use_checkify:
             _check_finite(_named_leaves(state, grads=False))

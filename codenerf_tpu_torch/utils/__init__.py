@@ -1,1 +1,2 @@
-"""Logging (counterpart of ``codenerf_tpu/utils``)."""
+"""Logging (counterpart of ``codenerf_tpu/utils``) and the span recorder
+(``trace``)."""

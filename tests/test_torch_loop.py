@@ -102,6 +102,19 @@ def test_trains_checkpoints_and_resumes(synth_root, tmp_path):
     run_training(cfg, max_steps=6, device="cpu")
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the port's spans of the window's steps, on the trace's clock: each
+    # step's root holds the step's CPU operators
+    spans = [e for e in trace["traceEvents"]
+             if e.get("cat") == "program_span"]
+    roots = [e for e in spans if e["name"] == "train.step"]
+    assert [e["args"]["step"] for e in roots] == [12]
+    assert {"train.rays", "train.forward", "train.backward",
+            "train.optimizer", "loader.wait", "loader.load",
+            "loop.checkpoint"} <= {e["name"] for e in spans}
+    ops = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"
+           and e["tid"] == roots[0]["tid"]]
+    lo, hi = roots[0]["ts"], roots[0]["ts"] + roots[0]["dur"]
+    assert sum(lo <= e["ts"] < hi for e in ops) > 100
 
 
 def test_sigterm_saves_and_exits_then_resumes(synth_root, tmp_path):
