@@ -5,9 +5,10 @@ A concat matmul factors exactly, ``concat(a, b) @ W == a @ W_top +
 b @ W_bottom``, so every layer that reads [per-sample | per-ray] input
 splits into a per-sample product over [R, S, .] and a per-ray product over
 [R, .] that is broadcast-added.  The cast points are the JAX XLA path's:
-inputs are cast to the compute dtype, each product is the f32 sum of f32
-products of compute-dtype values rounded back to the compute dtype, bias
-and relu run in the compute dtype, and the radiance leaves in f32.
+inputs are cast to the compute dtype, each product is the f32 sum of the
+exact products of compute-dtype values rounded back to the compute dtype
+(``_dot``: on the tensor cores for CUDA tensors), bias and relu run in
+the compute dtype, and the radiance leaves in f32.
 
 The training Functions are JAX's custom VJPs with their cast points:
 ``_DotLP`` (``_dot_lp``), ``_DotAddRelu`` (``_dot_add_relu``: the relu
@@ -29,18 +30,71 @@ def _w(layer) -> torch.Tensor:
     return layer.weight.t()
 
 
+# cuBLAS's switch (get, set) that lets a 16-bit product reduce partial
+# sums in its output dtype: (allow reduced precision, allow split-K)
+_REDUCTION = {
+    torch.bfloat16: (
+        torch._C._get_cublas_allow_bf16_reduced_precision_reduction,
+        torch._C._set_cublas_allow_bf16_reduced_precision_reduction),
+    torch.float16: (
+        torch._C._get_cublas_allow_fp16_reduced_precision_reduction,
+        torch._C._set_cublas_allow_fp16_reduced_precision_reduction),
+}
+
+
+def _f32_reduction_mm(a, b):
+    """a @ b of 16-bit [M, K] and [K, N] with a 16-bit result, every sum
+    in f32: cuBLAS's reduced-precision (split-K) reduction is off for the
+    call, so the result is the f32 sum rounded once."""
+    get, put = _REDUCTION[a.dtype]
+    saved = get()
+    put(False, saved[1])
+    try:
+        return torch.mm(a, b)
+    finally:
+        put(*saved)
+
+
+def _dot(a, b, cd, dtype=torch.float32):
+    """a [..., K] @ b [K, N] of operands rounded to ``cd``, with f32 sums
+    and the result in ``dtype``, rounded once (JAX ``jnp.dot(a_cd, b_cd,
+    preferred_element_type=jnp.float32)``).  CUDA tensors with a 16-bit
+    ``cd`` run on the tensor cores: ``torch.mm(...,
+    out_dtype=torch.float32)``, or a ``cd`` result straight from
+    ``_f32_reduction_mm``.  Other tensors run the f32 product of the
+    upcast operands, the same sums of the same exact products.
+    ``_dot.routes`` counts the products by route."""
+    a, b = a.to(cd), b.to(cd)
+    if not (a.is_cuda and cd in _REDUCTION):
+        _dot.routes["upcast"] += 1
+        return (a.float() @ b.float()).to(dtype)
+    _dot.routes["tensor_core"] += 1
+    a2 = a.reshape(-1, a.shape[-1])
+    if dtype == cd:
+        y = _f32_reduction_mm(a2, b)
+    else:
+        y = torch.mm(a2, b, out_dtype=torch.float32).to(dtype)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+_dot.routes = {"tensor_core": 0, "upcast": 0}
+
+
 def _mmc(x, w, cd):
     """x @ w: ``cd`` inputs, f32 sums, a ``cd`` result; plain f32 when
     ``cd`` is None."""
     if cd is None:
         return x @ w
-    return (x.to(cd).float() @ w.to(cd).float()).to(cd)
+    return _dot(x, w, cd, cd)
 
 
-def _dw(x, g):
-    """x^T @ g over every leading axis, f32 sums and result."""
-    return (x.float().reshape(-1, x.shape[-1]).t()
-            @ g.float().reshape(-1, g.shape[-1]))
+def _dw(x, g, cd):
+    """x^T @ g over every leading axis, f32 sums and result, of ``cd``
+    operands (plain f32 when ``cd`` is None)."""
+    x2, g2 = x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1])
+    if cd is None:
+        return x2.float() @ g2.float()
+    return _dot(x2, g2, cd)
 
 
 class _DotLP(torch.autograd.Function):
@@ -60,12 +114,11 @@ class _DotLP(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         cd = ctx.cd
-        gc = g.to(cd).float()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = (gc @ w.to(cd).float().t()).to(x.dtype)
+            dx = _dot(g, w.to(cd).t(), cd, x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _dw(x.to(cd), gc).to(w.dtype)
+            dw = _dw(x, g, cd).to(w.dtype)
         return dx, dw, None
 
 
@@ -135,14 +188,17 @@ class _FcOutTail(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, b_rows = ctx.saved_tensors
-        ct = ctx.cd or torch.float32
+        cd = ctx.cd
+        ct = cd or torch.float32
         gc = g.to(ct)
         gf, gs = gc[..., :-1], gc[..., -1:]
         wc = w.to(ct)
-        dx = (gf.float() @ wc[:, :-1].float().t()
-              + gs.float() * wc[:, -1].float()).to(x.dtype)
+        dxf = (gf.float() @ wc[:, :-1].float().t() if cd is None
+               else _dot(gf, wc[:, :-1].contiguous().t(), cd))
+        dx = (dxf + gs.float() * wc[:, -1].float()).to(x.dtype)
         xc = x.to(ct)
-        dw = torch.cat([_dw(xc, gf), _dw(xc, gs)], dim=1).to(w.dtype)
+        dw = torch.cat([_dw(xc, gf, cd), _dw(xc, gs, cd)],
+                       dim=1).to(w.dtype)
         db = torch.cat([gf.float().sum(dim=1), gs.float().sum(dim=1)],
                        dim=-1).to(b_rows.dtype)
         return dx, dw, db, None
