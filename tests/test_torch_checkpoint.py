@@ -35,6 +35,7 @@ from tests.test_torch_train import (H, LAMBDA, N_RAYS, NUM_OBJECTS, W,
                                     _jax_loss_and_grads, _port_grads,
                                     check_step)
 from tests.torch_port_helpers import t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 
 def _inputs(seed=6):

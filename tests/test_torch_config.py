@@ -17,6 +17,7 @@ import yaml
 from codenerf_tpu.config import schema as jschema
 from codenerf_tpu_torch.config import schema as pschema
 from codenerf_tpu_torch.config import yaml_lite
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "configs").glob("*.yml"))

@@ -15,6 +15,7 @@ from codenerf_tpu_torch.core import (encoding_dim, frequency_bands,
                                      pose_spherical, positional_encoding,
                                      ray_bundle)
 from tests.torch_port_helpers import F32_ATOL, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("log_sampling", [True, False])

@@ -23,6 +23,7 @@ from codenerf_tpu.data.srn import SRNDataset as JSRNDataset
 from codenerf_tpu_torch.config import config_from_dict
 from codenerf_tpu_torch.data import (BatchIterator, PrefetchIterator,
                                      SRNDataset, build_dataset, read_png)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -36,6 +36,7 @@ from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train import checkpoint, init_train_state
 from codenerf_tpu_torch.utils.logging import MetricLogger
 from codenerf_tpu_torch.weights import params_from_jax
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 BASE = ROOT / "configs" / "synth-smoke.yml"

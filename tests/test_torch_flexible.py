@@ -48,6 +48,7 @@ from codenerf_tpu_torch.weights import flexible_from_jax, params_from_jax
 from tests.test_torch_train import H, W, N_RAYS, _data
 from tests.test_torch_xla_path import jax_on_tpu  # noqa: F401 (fixture)
 from tests.torch_port_helpers import BF16_REL_RMS, F32_ATOL, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CDS = {"f32": None, "bf16": "bfloat16"}

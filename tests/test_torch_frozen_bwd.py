@@ -29,6 +29,7 @@ from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
 from tests.test_torch_fused_bwd import _flat, _trunk_inputs
 from tests.torch_port_helpers import (BF16_REL_RMS, F32_ATOL, configs,
                                       jax_and_port_models, rel_rms, t)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 PER_RAY_GRADS = ("g_pts", *(f"g_{k}" for k in PER_RAY_KEYS))
 

@@ -14,6 +14,7 @@ from codenerf_tpu_torch.ops.fused import (fused_codenerf, kernel_weights,
                                           trunk_forward_plain)
 from tests.torch_port_helpers import (BF16_REL_RMS, F32_ATOL, configs,
                                       jax_and_port_models, rel_rms, t)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -30,6 +30,7 @@ from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           trunk_backward_plain)
 from tests.torch_port_helpers import (BF16_REL_RMS, F32_ATOL, configs,
                                       jax_and_port_models, rel_rms, t)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 WEIGHT_GRADS = ("w1s", "w1c", "w2", "wof", "wos", "wd", "wd2", "bd2", "wr")
 

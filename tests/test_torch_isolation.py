@@ -19,6 +19,7 @@ from pathlib import Path
 from codenerf_tpu.config import load_config as jax_load_config
 from codenerf_tpu_torch.config import (SRN_CARS_CODE, config_from_dict,
                                        load_config)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

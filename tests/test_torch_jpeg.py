@@ -21,6 +21,7 @@ import pytest
 from codenerf_tpu_torch.data.jpeg import probe, read_jpeg, read_jpegs
 from tests.torch_jpeg_fixtures import (CASES, FIXTURES, pixels_sha256,
                                        save_jpeg, seeded_image)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 # (width, height), as Pillow gives sizes
 SIZES = [(1, 1), (7, 5), (37, 53), (129, 67), (250, 190)]

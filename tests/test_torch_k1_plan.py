@@ -18,6 +18,7 @@ import torch
 from codenerf_tpu_torch.models import CodeNeRF
 from codenerf_tpu_torch.models.mlp import CodeNeRFConfig
 from codenerf_tpu_torch.ops import fused, plan
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 N_SM = 132                     # an H100 SXM
 # (H, SC, F): srn-cars-code*.yml, srn-cars.yml, and the tests' narrow widths

@@ -17,6 +17,7 @@ import torch
 from codenerf_tpu_torch.config import SRN_CARS_CODE, config_from_dict
 from codenerf_tpu_torch.ops import fused, plan
 from codenerf_tpu_torch.pipeline import RenderSettings, trunk_path
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 N_SM = 132                     # an H100 SXM
 WIDTHS = {"flagship": (256, 256, 10), "synth-smoke": (64, 32, 6)}

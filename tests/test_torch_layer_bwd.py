@@ -22,6 +22,7 @@ from codenerf_tpu_torch.ops import layer_bwd
 from codenerf_tpu_torch.ops.layer_bwd import (linear_relu_bwd,
                                               linear_relu_bwd_plain)
 from tests.torch_port_helpers import BF16_REL_RMS, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 

@@ -19,6 +19,7 @@ from codenerf_tpu.core import lie as jlie
 from codenerf_tpu.core.geometry import pose_spherical as j_pose
 from codenerf_tpu_torch.core import lie, pose_spherical
 from tests.torch_port_helpers import F32_ATOL, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 
 def _axis_angles(rng, n, angles):

@@ -27,6 +27,7 @@ from codenerf_tpu_torch.config import load_config
 from codenerf_tpu_torch.data import LLFFDataset
 from codenerf_tpu_torch.harness import Harness
 from tests.torch_jpeg_fixtures import save_jpeg
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FERN = ROOT / "configs" / "fern.yml"

@@ -12,6 +12,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -25,11 +26,14 @@ from codenerf_tpu.core.metrics import ssim as j_ssim
 from codenerf_tpu_torch import train_cli
 from codenerf_tpu_torch.config import load_config
 from codenerf_tpu_torch.core.metrics import ssim
+from codenerf_tpu_torch.data.loader import PrefetchIterator
 from codenerf_tpu_torch.harness import Harness, validate
 from codenerf_tpu_torch.train import checkpoint, init_train_state
 from codenerf_tpu_torch.train import make_train_step
 from codenerf_tpu_torch.train.loop import run_training
+from codenerf_tpu_torch.utils import trace as trace_spans
 from codenerf_tpu_torch.utils.logging import MetricLogger
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 BASE = ROOT / "configs" / "synth-smoke.yml"
@@ -83,7 +87,35 @@ def _logged(path: Path, key="nerf_loss_fine"):
     return [r[key] for r in recs if r["mode"] == "train"]
 
 
-def test_trains_checkpoints_and_resumes(synth_root, tmp_path):
+def _hold_close_for_the_windows_load(monkeypatch):
+    """The loader thread's load after the window's one batch is taken
+    races the step's end: ``close`` would stop the thread before it is
+    scheduled.  Once tracing is on, hold ``PrefetchIterator.close`` until
+    that load has begun, so that its ``loader.load`` span is recorded."""
+    opened, loading = threading.Event(), threading.Event()
+    enable, span = trace_spans.enable, trace_spans.span
+    close = PrefetchIterator.close
+
+    def traced_enable():
+        enable()
+        opened.set()
+
+    def traced_span(name, step=None):
+        if name == "loader.load" and opened.is_set():
+            loading.set()
+        return span(name, step)
+
+    def patient_close(self, timeout=10.0):
+        if opened.is_set():
+            loading.wait(60)
+        close(self, timeout)
+
+    monkeypatch.setattr(trace_spans, "enable", traced_enable)
+    monkeypatch.setattr(trace_spans, "span", traced_span)
+    monkeypatch.setattr(PrefetchIterator, "close", patient_close)
+
+
+def test_trains_checkpoints_and_resumes(synth_root, tmp_path, monkeypatch):
     cfg = _cfg(synth_root, tmp_path, **{"runtime.profile_dir":
                                         tmp_path / "prof"})
     metrics = run_training(cfg, max_steps=5, device="cpu")
@@ -99,6 +131,7 @@ def test_trains_checkpoints_and_resumes(synth_root, tmp_path):
     # a profiler window opens 5 steps into a run: the two runs above end
     # before it, the next (7 -> 13) opens it at 12 and closes it at its end
     assert not (tmp_path / "prof" / "trace.json").exists()
+    _hold_close_for_the_windows_load(monkeypatch)
     run_training(cfg, max_steps=6, device="cpu")
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]

@@ -19,6 +19,7 @@ from codenerf_tpu_torch.models.ray_structured import (apply_codenerf_rays,
 from codenerf_tpu_torch.weights import codenerf_from_jax, codes_from_jax
 from tests.torch_port_helpers import (BF16_REL_RMS, F32_ATOL, configs,
                                       jax_and_port_models, rel_rms, t)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 
 def _ray_inputs(cfg, R=6, S=5, seed=0):

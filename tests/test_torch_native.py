@@ -20,6 +20,7 @@ import pytest
 from codenerf_tpu.data.srn import SRNDataset as JSRNDataset
 from codenerf_tpu_torch.data import SRNDataset, native
 from codenerf_tpu_torch.data.png import read_png, write_png
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

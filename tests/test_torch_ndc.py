@@ -20,6 +20,7 @@ from codenerf_tpu_torch.pipeline import render_rays, render_rays_train
 from tests.test_torch_flexible import (jax_grads, port_grads, vanilla_both,
                                        vanilla_dict)
 from tests.torch_port_helpers import F32_ATOL, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 NDC = (24.0, 32.0, 28.0)         # H, W, focal in pixels
 

@@ -12,6 +12,7 @@ from codenerf_tpu_torch.ops.sampling import (base_z_vals, sample_pdf,
                                              sample_stratified)
 from codenerf_tpu_torch.ops.volume_render import volume_render
 from tests.torch_port_helpers import F32_ATOL, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 
 def _rays(R, seed):

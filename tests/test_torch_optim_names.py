@@ -30,6 +30,7 @@ from codenerf_tpu_torch.config import OptimizerConfig
 from codenerf_tpu_torch.eval.tto import TTOState, select_per_object
 from codenerf_tpu_torch.train.optim import (OPTIMIZERS, build_optimizer,
                                             build_tto_optimizer)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 NAMES = sorted(_OPTIMIZERS)
 RTOL, ATOL = 1e-6, 1e-7

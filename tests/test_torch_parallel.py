@@ -38,6 +38,7 @@ from tests import torch_parallel_ranks as ranks
 from tests.test_torch_train import (H, LAMBDA, N_RAYS, NUM_OBJECTS, W, _both,
                                     _cfg_dict, _data, check_step)
 from tests.torch_port_helpers import t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 # (compute dtype, trunk mode by its flags, ray_chunks)
 CASES = [("float32", "fused", 1), ("float32", "fused", 2),

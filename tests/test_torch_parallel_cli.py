@@ -28,6 +28,7 @@ from codenerf_tpu_torch.train import checkpoint
 from tests import torch_parallel_ranks as ranks
 from tests.test_torch_eval import (BASE, NUM_OBJECTS, ROOT, _overrides,
                                    _saved_checkpoint, synth_root)  # noqa: F401
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 STEPS = 3
 TIMEOUT = 300

@@ -39,6 +39,7 @@ from tests.test_torch_tto import (H, LAMBDA, MODES, NUM_OBJECTS, R, W, Setup,
                                   check, jax_draws, jax_step_grads, poses_gt)
 from tests.test_torch_tto_multiview import multiview_data
 from tests.torch_port_helpers import F32_ATOL, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 K, V = 2, 2
 KINDS = ["single", "batched", "multiview", "se3", "multiview_se3"]

@@ -15,6 +15,7 @@ import torch
 
 from codenerf_tpu_torch.models import ray_structured as rs
 from codenerf_tpu_torch.ops import layer_bwd
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 # lego's widths: K of layer1 / the trunk / the view-direction layer, N of

@@ -54,6 +54,7 @@ from codenerf_tpu_torch.pipeline import RenderSettings, render_rays
 from codenerf_tpu_torch.weights import (codenerf_from_jax, flexible_from_jax,
                                         quantized_from_jax)
 from tests.torch_port_helpers import BF16_REL_RMS, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 CODE = dict(hidden_size=32, shape_code_size=24, texture_code_size=20,
             num_encoding_fn_xyz=4, num_encoding_fn_dir=2)

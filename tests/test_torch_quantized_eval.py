@@ -50,6 +50,7 @@ from tests.test_torch_eval import (BASE, NUM_OBJECTS, ROOT, _both,
 from tests.test_torch_trained import CONFIG, FIXTURE, TAR
 from tests.test_torch_trained import NUM_OBJECTS as TRAINED_OBJECTS
 from tests.torch_port_helpers import t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 INT8 = ["runtime.int8_serving=True"]
 PSNR_DB = 0.05

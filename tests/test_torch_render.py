@@ -31,6 +31,7 @@ from codenerf_tpu_torch.ops.fused import trunk_forward
 from codenerf_tpu_torch.pipeline import RenderSettings, render_rays
 from codenerf_tpu_torch.weights import codenerf_from_jax
 from tests.torch_port_helpers import BF16_REL_RMS, F32_ATOL, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 H = W = 8
 

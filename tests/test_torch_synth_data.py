@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from codenerf_tpu_torch.data.png import encode_png, read_png, write_png
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

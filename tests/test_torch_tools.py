@@ -57,6 +57,7 @@ from codenerf_tpu_torch.tools import (diag_fine, gpu_selftest, phi_sweep,
 from codenerf_tpu_torch.weights import params_from_jax
 from tests.test_torch_eval import (BASE, NUM_OBJECTS, _overrides,  # noqa: F401
                                    synth_root)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RENDER_PSNR = 60.0          # tests/test_torch_quantized.py's bound

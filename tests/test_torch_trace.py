@@ -22,6 +22,7 @@ from codenerf_tpu_torch.eval.tto import (init_batched_tto_state,
 from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train import init_train_state, make_train_step
 from codenerf_tpu_torch.utils import trace
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ["models.nerf_coarse.hidden_size=16",

@@ -60,6 +60,7 @@ from codenerf_tpu_torch.train import (gather_ray_batch, init_train_state,
                                       make_train_step)
 from codenerf_tpu_torch.weights import codes_from_jax, params_from_jax
 from tests.torch_port_helpers import BF16_REL_RMS, F32_ATOL, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 H = W = 8
 N_RAYS = 16

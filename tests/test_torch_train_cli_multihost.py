@@ -15,6 +15,7 @@ import pytest
 
 from codenerf_tpu_torch import eval_cli, train_cli
 from codenerf_tpu_torch.parallel import launch
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "configs" / "synth-smoke.yml"

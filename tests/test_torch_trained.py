@@ -46,6 +46,7 @@ from codenerf_tpu_torch.train.checkpoint import load_checkpoint
 from codenerf_tpu_torch.train.optim import build_tto_optimizer
 from codenerf_tpu_torch.weights import tto_variables_from_jax
 from tests.torch_port_helpers import BF16_REL_RMS, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TAR = ROOT / "assets/checkpoints/flagship-v4-cars-42100.tar.gz"

@@ -48,6 +48,7 @@ from codenerf_tpu_torch.weights import params_from_jax, tto_variables_from_jax
 from tests.test_torch_train import _cfg_dict
 from tests.test_torch_xla_path import jax_on_tpu  # noqa: F401
 from tests.torch_port_helpers import BF16_REL_RMS, F32_ATOL, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 H = W = 8
 R = 32

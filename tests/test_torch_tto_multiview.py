@@ -22,6 +22,7 @@ from tests.test_torch_tto import (LAMBDA, R, Setup, _generator_steps,
                                   port_grads, port_state, poses_gt)
 from tests.test_torch_xla_path import jax_on_tpu  # noqa: F401
 from tests.torch_port_helpers import t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 K, V = 2, 2
 

@@ -36,6 +36,7 @@ from codenerf_tpu_torch.pipeline import RenderSettings
 from codenerf_tpu_torch.train import checkpoint, init_train_state
 from codenerf_tpu_torch.train.loop import run_training
 from tests.torch_port_helpers import F32_ATOL, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ["nerf.ray_sampler.num_random_rays=16",

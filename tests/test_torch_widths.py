@@ -33,6 +33,7 @@ from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
 from codenerf_tpu_torch.ops.layer_bwd import linear_relu_bwd_plain, pad_layer
 from tests.torch_port_helpers import (BF16_REL_RMS, F32_ATOL, configs,
                                       jax_and_port_models, rel_rms, t)
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 N_SM = 132                     # an H100 SXM
 H, SC = 48, 40                 # neither a multiple of 32

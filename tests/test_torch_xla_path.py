@@ -44,6 +44,7 @@ from tests.test_torch_train import (H, W, N_RAYS, _both, _cfg_dict, _data,
                                     _port_grads, _port_step,
                                     step_against_jax)
 from tests.torch_port_helpers import BF16_REL_RMS, F32_ATOL, rel_rms, t
+from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
