@@ -12,8 +12,8 @@ with the committed trained weights:
 
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile K1 (``ops/csrc/trunk_fwd.cu``), K2 / K3
-               (``ops/csrc/trunk_bwd.cu``) and K4 (``ops/csrc/layer_bwd.cu``)
-               with one nvcc each, started together, into
+               (``ops/csrc/trunk_bwd.cu``), K4 (``ops/csrc/layer_bwd.cu``)
+               and LF (``ops/csrc/layer_fwd.cu``) with one nvcc each, started together, into
                ``build/torch_kernels/``; print ptxas's registers and spills.
   3. kernels — K1, K2, K3 and K4 against their plain PyTorch versions on
                the card at the main paths' shapes (the render's R = 4096
@@ -38,7 +38,12 @@ with the committed trained weights:
                past what a full row tile holds: K1-K3 at hidden and codes
                864 (bf16 and f32, half tiles) and 1760 (quarter tiles),
                K4 at w (64, 1760) (a half tile) and (16, 3520) (a
-               quarter).
+               quarter); LF, the fused linear + relu forward, at lego's
+               relu layers (R = 16384, S = 64 and 192): every element
+               within its product's rounding, at most ``LAYER_FWD_DIFFER``
+               differing from the plain version, bit-identical across two
+               calls, timed beside the plain version, the cuBLAS product
+               alone and the bound.
   4. render  — one 128x128 image through ``make_image_renderer`` on CUDA
                with K1 (``use_pallas``; K1's launch count must rise by
                exactly 8), the same image with the plain trunk (PSNR gate
@@ -64,7 +69,8 @@ with the committed trained weights:
                ``pallas_backward``: K1 + K2), hybrid (``pallas_hybrid``:
                K3), xla (the YAML's own runtime: the ray-structured path
                with remat) and layer_bwd (the same with
-               ``pallas_layer_bwd``: K4).  (a) one step of 4 x 4096 rays
+               ``pallas_layer_bwd``: K4); both ray-structured modes launch
+               LF, 28 a step.  (a) one step of 4 x 4096 rays
                with the kernels against the same step on the plain
                versions (gradient relRMS gate 1e-2 per leaf; layer_bwd also
                against the xla step), (b) 30 steps of 4 x 4096 rays
@@ -199,7 +205,8 @@ with the committed trained weights:
                then (a) one lego step of 1 x 16384 rays with K4 against the
                plain-version step and the xla step (gradient relRMS 1e-2
                per leaf), (b) 10 steps in each runtime (xla, layer_bwd: 16
-               K4 launches a step; ms, rays/s, a falling fine loss), a
+               K4 launches a step in layer_bwd, 36 LF launches a step in
+               both; ms, rays/s, a falling fine loss), a
                profile of the K4 step, (c) one f32 step against the plain
                versions (1e-4); an LLFF tree (poses_bounds.npy, 20 PNGs of
                504x378 in images_8/) rendered in NDC, 5 fern steps (10 K4
@@ -285,6 +292,9 @@ from codenerf_tpu_torch.ops.fused import (PER_RAY_KEYS, hybrid_forward_plain,
                                           trunk_forward_plain)
 from codenerf_tpu_torch.ops.layer_bwd import (linear_relu_bwd,
                                               linear_relu_bwd_plain)
+from codenerf_tpu_torch.ops.layer_fwd import (linear_relu_fwd,
+                                              linear_relu_fwd_plain)
+from codenerf_tpu_torch.ops.products import _mmc
 from codenerf_tpu_torch.core.encoding import positional_encoding
 from codenerf_tpu_torch.pipeline import RenderSettings, trunk_path
 from codenerf_tpu_torch.train import (checkpoint, init_train_state,
@@ -321,7 +331,8 @@ def launch_counts() -> dict:
     return {"K1": trunk_forward.launches,
             "K2": trunk_backward.launches_recompute,
             "K3": trunk_backward.launches_stored,
-            "K4": linear_relu_bwd.launches}
+            "K4": linear_relu_bwd.launches,
+            "LF": linear_relu_fwd.launches}
 
 
 def reset_launch_counts():
@@ -329,6 +340,7 @@ def reset_launch_counts():
     trunk_backward.launches_recompute = 0
     trunk_backward.launches_stored = 0
     linear_relu_bwd.launches = 0
+    linear_relu_fwd.launches = 0
 
 
 def time_ms(fn, calls=10, repeats=5, warmup=3) -> float:
@@ -887,6 +899,113 @@ def check_k4(cases, card, seed=SEED + 6) -> list:
     return rows
 
 
+# the fused linear + relu forward at lego.yml's relu layers: layer1 (K = 63),
+# the trunk and fc_feat (a bias, K = N = 256), layer_dir1 (per-ray rows,
+# N = h/2); 16384 rays, S = 64 coarse and 192 fine.  (name, S, per_ray, K, N)
+LAYER_FWD_CASES = tuple(
+    (f"{name} {pass_}", S, per_ray, K, N)
+    for pass_, S in (("coarse", 64), ("fine", 192))
+    for name, per_ray, K, N in (("layer1", False, 63, 256),
+                                ("trunk", False, 256, 256),
+                                ("layer_dir1", True, 256, 128)))
+# the share of the fused forward's elements that may differ from the plain
+# version (an H100 showed 0 at K = 256 and ~1.4e-6 at K = 63)
+LAYER_FWD_DIFFER = 1e-5
+# lego's relu layer-passes a chunk-step, by case name without its pass:
+# layer1, 7 bias layers (6 trunk layers and fc_feat), layer_dir1, each in
+# the forward and its remat recompute
+LEGO_LF_PASSES = {"layer1": 2, "trunk": 14, "layer_dir1": 2}
+
+
+def bf16_step(t, step):
+    """The bf16 value ``step`` ulps from each element of bf16 ``t``."""
+    i = t.view(torch.int16).int()
+    o = torch.where(i < 0, -(i & 0x7FFF), i) + step
+    return torch.where(o < 0, (-o) | 0x8000, o).to(torch.int16).view(
+        torch.bfloat16)
+
+
+def layer_fwd_off(x, w, b, got):
+    """Elements of the fused forward's ``got`` that its product's f32 sums
+    in another order cannot explain (the card test's rule): each must be
+    relu(bf16(y' + b)) for a y' within one bf16 ulp of the eager product
+    y, or, where y's sum cancels so far that 2 K 2^-24 (|x| @ |w|) passes
+    half an ulp of y, lie within that bound of the eager output."""
+    y = _mmc(x, w, torch.bfloat16)
+    want = torch.relu(y + b)
+    near = got == want
+    for step in (-1, 1):
+        near |= got == torch.relu(bf16_step(y, step) + b)
+    if bool(near.all()):
+        return near.logical_not()
+    k = x.shape[-1]
+    bound = (2 * k * 2.0 ** -24 * (x.float().abs().reshape(-1, k)
+                                   @ w.to(torch.bfloat16).float().abs())
+             ).reshape(y.shape)
+    gap = (got.float() - want.float()).abs()
+    slack = 2 * bound + 2.0 ** -7 * (y.float().abs() + want.float().abs())
+    return ~near & ~((bound > y.float().abs() * 2.0 ** -9) & (gap <= slack))
+
+
+def check_layer_fwd(card, rays=16384, seed=SEED + 36) -> list:
+    """The fused linear + relu forward against its plain version (the
+    cuBLAS product, a bias add, a relu) at lego's shapes: every element
+    within the product's rounding (``layer_fwd_off``), at most
+    ``LAYER_FWD_DIFFER`` of them differing, bit-identical across two calls;
+    kernel, plain and product-alone (cuBLAS, ``_mmc``) times beside the
+    bound, rows (K + N) 2 bytes at the card's byte rate."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rows = []
+    for name, S, per_ray, K, N in LAYER_FWD_CASES:
+        x = torch.randn(rays, S, K, generator=gen).to(torch.bfloat16).cuda()
+        w = (torch.randn(N, K, generator=gen) * K ** -0.5).cuda().t()
+        b = (torch.randn((rays, 1, N) if per_ray else (N,), generator=gen)
+             * 0.5).to(torch.bfloat16).cuda()
+
+        def kern():
+            return linear_relu_fwd(x, w, b, torch.bfloat16)
+
+        def plain():
+            return linear_relu_fwd_plain(x, w, b, torch.bfloat16)
+
+        def library():
+            return _mmc(x, w, torch.bfloat16)
+
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise RuntimeError(f"layer_fwd {name}: two calls differ")
+        off = int(layer_fwd_off(x, w, b, got).sum())
+        differ = float((got != want).float().mean())
+        if off or not differ <= LAYER_FWD_DIFFER:
+            raise RuntimeError(f"layer_fwd {name}: {off} elements outside "
+                               f"the product's rounding, {differ:.3g} of "
+                               f"them differ from the plain version")
+        del got, again, want
+        ms = time_ms(kern, calls=5, repeats=5, warmup=2)
+        plain_ms = time_ms(plain, calls=5, repeats=5, warmup=2)
+        library_ms = time_ms(library, calls=5, repeats=5, warmup=2)
+        M = rays * S
+        cost = {"bf16_flops": 2 * M * K * N, "f32_ops": 0,
+                "bytes": M * (K + N) * 2 + K * N * 2}
+        b_ms, b_by = bound_ms(cost)
+        row = {"case": name, "R": rays, "S": S, "K": K, "N": N,
+               "per_ray": per_ray, "differ": differ, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "cost": cost}
+        print(f"layer_fwd {name} R={rays} S={S} w ({K}, {N}) "
+              f"{'per-ray' if per_ray else 'bias'}: every element within "
+              f"the product's rounding, {differ:.3g} of them differ from "
+              f"plain, bit-identical across two calls; ms={ms:.6g} "
+              f"plain_ms={plain_ms:.6g} library_ms={library_ms:.6g} "
+              f"bound_ms={b_ms:.6g} ({b_by}, {b_ms / ms:.1%} of it) on "
+              f"{card}", flush=True)
+        rows.append(row)
+        del x, w, b
+        torch.cuda.empty_cache()
+    return rows
+
+
 # widths past the limits the kernels once had (plan.py): hidden and code
 # widths that are not multiples of 32 run zero-padded; bf16 K1 wider than
 # K1_MAX_WIDTH or with more than K1_MAX_BANDS bands runs the row-tile
@@ -1109,13 +1228,16 @@ TRAIN_STEPS = 30
 
 # the train modes, named by their runtime flags over the YAML's own
 # runtime (use_pallas false, remat true); the launches each step must make
+# (LF, the fused linear + relu forward, in the ray-structured modes: 7 relu
+# layers x 2 networks x the forward and its remat recompute, in TTO too)
 TRAIN_MODES = {
     "fused": ({"use_pallas": True, "pallas_backward": True},
-              {"K1": 2, "K2": 2, "K3": 0, "K4": 0}),
-    "hybrid": ({"pallas_hybrid": True}, {"K1": 0, "K2": 0, "K3": 2, "K4": 0}),
-    "xla": ({}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0}),
+              {"K1": 2, "K2": 2, "K3": 0, "K4": 0, "LF": 0}),
+    "hybrid": ({"pallas_hybrid": True},
+               {"K1": 0, "K2": 0, "K3": 2, "K4": 0, "LF": 0}),
+    "xla": ({}, {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "LF": 28}),
     "layer_bwd": ({"pallas_layer_bwd": True},
-                  {"K1": 0, "K2": 0, "K3": 0, "K4": 6}),
+                  {"K1": 0, "K2": 0, "K3": 0, "K4": 6, "LF": 28}),
 }
 
 
@@ -1132,7 +1254,8 @@ PROFILE_LABELS = {
     "hybrid": {"K3": (*ROWS, *XTG), "K3 row pass": ROWS, "K3 dW": XTG,
                "K3 row-tile pass": ("trunk_bwd_rows_kernel",)},
     "layer_bwd": {"K4": ("layer_bwd_rows", *XTG),
-                  "K4 row pass": ("layer_bwd_rows",), "K4 dw": XTG},
+                  "K4 row pass": ("layer_bwd_rows",), "K4 dw": XTG,
+                  "LF": ("layer_fwd_wgmma",)},
 }
 # what a profiled flagship step must not launch: the row-tile pass (bf16
 # takes the wgmma row pass there) and, in TTO (a frozen model), the dW
@@ -2672,6 +2795,10 @@ FERN_HWF0 = (3024.0, 4032.0, 3260.0)   # the poses' full-size H, W, focal
 VANILLA_STEPS = 10
 FERN_STEPS = 5
 VANILLA_K4 = {"lego": 16, "fern": 10}  # launches per step and ray chunk
+# the fused forward's: lego's 9 relu layers x 2 networks x the forward and
+# its remat recompute, in both bf16 runtimes; fern's hidden 64 is outside
+# its plan and runs eager
+VANILLA_LF = {"lego": 36, "fern": 0}
 # the fern JPEG tree: FERN_VIEWS copies of the committed 4032x3024 fixture
 # in images/, no images_8/; its train CLI with yaml, imageio and PIL
 # unimportable, and TensorBoard too: its image summaries import PIL (the
@@ -2889,7 +3016,7 @@ def lego_phase(work: Path, card) -> dict:
             mcfg, settings, batch, SEED + 33)
         want = VANILLA_K4["lego"] if mode == "layer_bwd" else 0
         if launched["K4"] != want or launched["K1"] + launched["K2"] + \
-                launched["K3"]:
+                launched["K3"] or launched["LF"] != VANILLA_LF["lego"]:
             raise RuntimeError(f"lego {mode} (a): launched {launched}")
         row = {"loss_step_a": loss}
         if mode == "layer_bwd":
@@ -2926,7 +3053,8 @@ def lego_phase(work: Path, card) -> dict:
               f"{fine[-1]:.6g}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3g} GiB on "
               f"{card}", flush=True)
-        if per_step["K4"] != want or not finite(total):
+        if per_step["K4"] != want or per_step["LF"] != VANILLA_LF["lego"] \
+                or not finite(total):
             raise RuntimeError(f"lego {mode}: launches per step {per_step}, "
                                f"losses {total}")
         if not statistics.mean(fine[-3:]) < statistics.mean(fine[:3]):
@@ -2959,7 +3087,7 @@ def lego_phase(work: Path, card) -> dict:
                   "grad_rel_rms_worst": gate_grads(
                       "vanilla lego f32 vs plain", g32, p32,
                       F32_REL_RMS_GATE)}
-    if launched["K4"] != VANILLA_K4["lego"] or not (
+    if launched["K4"] != VANILLA_K4["lego"] or launched["LF"] or not (
             abs(loss32 - plain32) <= 1e-4 * plain32):
         raise RuntimeError(f"lego f32: launches {launched}, loss {loss32} "
                            f"vs {plain32}")
@@ -3003,7 +3131,8 @@ def fern_phase(work: Path, card) -> dict:
           f"median {statistics.median(ms):.6g} ms/step, first {ms[0]:.6g} "
           f"ms; launches per step {per_step}; fine loss {fine} on {card}",
           flush=True)
-    if per_step["K4"] != VANILLA_K4["fern"] or not finite(total):
+    if per_step["K4"] != VANILLA_K4["fern"] or \
+            per_step["LF"] != VANILLA_LF["fern"] or not finite(total):
         raise RuntimeError(f"fern: launches per step {per_step}, losses "
                            f"{total}")
     if not fine[-1] < fine[0]:
@@ -3809,7 +3938,7 @@ def main():
 
     t0 = time.perf_counter()
     # one nvcc for each source, started together
-    sources = ("trunk_fwd", "trunk_bwd", "layer_bwd")
+    sources = ("trunk_fwd", "trunk_bwd", "layer_bwd", "layer_fwd")
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, built in builds.items():
@@ -3872,6 +4001,7 @@ def main():
                     rd_all[:n_step].contiguous(), z_s.expand(n_step, -1),
                     z_t.expand(n_step, -1), card)
     k4 = check_k4(K4_CASES, card)
+    lf = check_layer_fwd(card)
     # the f32 instantiations of K1-K3, on an f32 model from its own seed
     _, f32_settings = mode_config({"compute_dtype": "float32"})
     model32 = CodeNeRF(f32_settings.fine_cfg, "cuda",
@@ -4197,6 +4327,37 @@ def main():
             k: bound_ms({c: sum(n * r["cost"][c] for r, n in rows)
                          for c in rows[0][0]["cost"]})[0]
             for k, rows in vanilla_k4_steps.items()},
+    })
+    # one lego chunk-step of the fused forward: each case's time by its
+    # layer-passes (LEGO_LF_PASSES)
+    lf_steps = [(r, LEGO_LF_PASSES[r["case"].split()[0]]) for r in lf]
+    lf_cost = {c: sum(n * r["cost"][c] for r, n in lf_steps)
+               for c in lf[0]["cost"]}
+    lf_bound_ms, lf_bound_by = bound_ms(lf_cost)
+    kernels.append({
+        "name": "LF layer_fwd",
+        "route": "cuda",
+        "source": "codenerf_tpu_torch/ops/csrc/layer_fwd.cu",
+        "replaces": "codenerf_tpu/models/ray_structured.py:90",
+        "launches": train["layer_bwd"]["launches"]["LF"],
+        "launches_per_train_step":
+            train["layer_bwd"]["launches_per_step"]["LF"],
+        "launches_per_tto_step": tto["layer_bwd"]["launches_per_step"]["LF"],
+        "launches_per_lego_step": {
+            m: vanilla["lego"][m]["launches_per_step"]["LF"]
+            for m in VANILLA_RUNTIMES},
+        "differ": max(r["differ"] for r in lf),
+        "ms": sum(n * r["ms"] for r, n in lf_steps),
+        "plain_ms": sum(n * r["plain_ms"] for r, n in lf_steps),
+        "library_ms": sum(n * r["library_ms"] for r, n in lf_steps),
+        "library_note": "the bf16 cuBLAS product alone (_mmc, f32 sums "
+                        "rounded once), without the bias add and relu",
+        "bound_ms": lf_bound_ms,
+        "bound_by": lf_bound_by,
+        "per": f"one lego chunk-step of {lf[0]['R']} rays: "
+               f"{sum(n for _, n in lf_steps)} launches, "
+               + ", ".join(f"{n} x {r['case']}" for r, n in lf_steps),
+        "shapes": lf,
     })
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"int8": {

@@ -7,12 +7,13 @@ splits into a per-sample product over [R, S, .] and a per-ray product over
 [R, .] that is broadcast-added.  The cast points are the JAX XLA path's:
 inputs are cast to the compute dtype, each product is the f32 sum of the
 exact products of compute-dtype values rounded back to the compute dtype
-(``_dot``: on the tensor cores for CUDA tensors), bias and relu run in
-the compute dtype, and the radiance leaves in f32.
+(``ops/products.py::_dot``: on the tensor cores for CUDA tensors), bias
+and relu run in the compute dtype, and the radiance leaves in f32.
 
 The training Functions are JAX's custom VJPs with their cast points:
 ``_DotLP`` (``_dot_lp``), ``_DotAddRelu`` (``_dot_add_relu``: the relu
-mask from the stored output, weight and bias grads summed in f32),
+mask from the stored output, weight and bias grads summed in f32; its
+forward one kernel, ``ops/layer_fwd.py``, where the call fits it),
 ``_DotAddReluPL`` (``_dot_add_relu_pl``: the same, its backward K4,
 ``ops/layer_bwd.py``) and ``_FcOutTail`` (``_fc_out_tail``).
 """
@@ -22,79 +23,13 @@ from __future__ import annotations
 import torch
 
 from codenerf_tpu_torch.models.mlp import CodeNeRF, FlexibleNeRF
-from codenerf_tpu_torch.ops import layer_bwd
+from codenerf_tpu_torch.ops import layer_bwd, layer_fwd
+from codenerf_tpu_torch.ops.products import _dot, _dw, _mmc
 
 
 def _w(layer) -> torch.Tensor:
     """A Linear's weight in the JAX package's [in, out] layout (a view)."""
     return layer.weight.t()
-
-
-# cuBLAS's switch (get, set) that lets a 16-bit product reduce partial
-# sums in its output dtype: (allow reduced precision, allow split-K)
-_REDUCTION = {
-    torch.bfloat16: (
-        torch._C._get_cublas_allow_bf16_reduced_precision_reduction,
-        torch._C._set_cublas_allow_bf16_reduced_precision_reduction),
-    torch.float16: (
-        torch._C._get_cublas_allow_fp16_reduced_precision_reduction,
-        torch._C._set_cublas_allow_fp16_reduced_precision_reduction),
-}
-
-
-def _f32_reduction_mm(a, b):
-    """a @ b of 16-bit [M, K] and [K, N] with a 16-bit result, every sum
-    in f32: cuBLAS's reduced-precision (split-K) reduction is off for the
-    call, so the result is the f32 sum rounded once."""
-    get, put = _REDUCTION[a.dtype]
-    saved = get()
-    put(False, saved[1])
-    try:
-        return torch.mm(a, b)
-    finally:
-        put(*saved)
-
-
-def _dot(a, b, cd, dtype=torch.float32):
-    """a [..., K] @ b [K, N] of operands rounded to ``cd``, with f32 sums
-    and the result in ``dtype``, rounded once (JAX ``jnp.dot(a_cd, b_cd,
-    preferred_element_type=jnp.float32)``).  CUDA tensors with a 16-bit
-    ``cd`` run on the tensor cores: ``torch.mm(...,
-    out_dtype=torch.float32)``, or a ``cd`` result straight from
-    ``_f32_reduction_mm``.  Other tensors run the f32 product of the
-    upcast operands, the same sums of the same exact products.
-    ``_dot.routes`` counts the products by route."""
-    a, b = a.to(cd), b.to(cd)
-    if not (a.is_cuda and cd in _REDUCTION):
-        _dot.routes["upcast"] += 1
-        return (a.float() @ b.float()).to(dtype)
-    _dot.routes["tensor_core"] += 1
-    a2 = a.reshape(-1, a.shape[-1])
-    if dtype == cd:
-        y = _f32_reduction_mm(a2, b)
-    else:
-        y = torch.mm(a2, b, out_dtype=torch.float32).to(dtype)
-    return y.reshape(*a.shape[:-1], b.shape[-1])
-
-
-_dot.routes = {"tensor_core": 0, "upcast": 0}
-
-
-def _mmc(x, w, cd):
-    """x @ w: ``cd`` inputs, f32 sums, a ``cd`` result; plain f32 when
-    ``cd`` is None."""
-    if cd is None:
-        return x @ w
-    return _dot(x, w, cd, cd)
-
-
-def _dw(x, g, cd):
-    """x^T @ g over every leading axis, f32 sums and result, of ``cd``
-    operands (plain f32 when ``cd`` is None)."""
-    x2, g2 = x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1])
-    if cd is None:
-        return x2.float() @ g2.float()
-    return _dot(x2, g2, cd)
 
 
 class _DotLP(torch.autograd.Function):
@@ -143,15 +78,24 @@ def _dar_backward(ctx, g, bwd):
 class _DotAddRelu(torch.autograd.Function):
     """relu(x @ w + b) that saves only x, w, b and the output y (JAX
     ``_dot_add_relu``).  ``b`` is a bias [N] or per-ray rows [R, 1, N].
-    The backward takes the relu mask from y > 0 and is
+    The forward is one kernel (``layer_fwd.linear_relu_fwd``: the product
+    with its round-bias-relu epilogue) for a call ``layer_fwd.fused_route``
+    takes (CUDA tensors, a bf16 ``cd``, widths in the kernel's plan), else
+    the product, bias add and relu of ``layer_fwd.linear_relu_fwd_plain``;
+    ``routes`` counts the calls by route (``fused``, ``eager``).  The
+    backward takes the relu mask from y > 0 and is
     ``layer_bwd.linear_relu_bwd_plain``: dx in x's dtype, dw and the bias
     sum in f32, cast to w's and b's dtypes.  Plain autograd through
     ``relu(mm + b.to(cd))`` would round the bias sum to ``cd``."""
 
+    routes = {"fused": 0, "eager": 0}
+
     @staticmethod
     def forward(ctx, x, w, b, cd):
-        y = _mmc(x, w, cd)
-        y = torch.relu(y + b.to(y.dtype))
+        fused = layer_fwd.fused_route(x, w, b, cd)
+        _DotAddRelu.routes["fused" if fused else "eager"] += 1
+        y = (layer_fwd.linear_relu_fwd if fused
+             else layer_fwd.linear_relu_fwd_plain)(x, w, b, cd)
         ctx.save_for_backward(x, w, b, y)
         ctx.cd = cd
         return y

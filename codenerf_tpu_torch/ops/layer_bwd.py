@@ -36,8 +36,7 @@ import functools
 
 import torch
 
-from codenerf_tpu_torch.models import ray_structured
-from codenerf_tpu_torch.ops import _build, plan
+from codenerf_tpu_torch.ops import _build, plan, products
 
 
 def _unbroadcast(gb, shape):
@@ -56,7 +55,7 @@ def linear_relu_bwd_plain(x, w, b, y, g, cd=None):
     """(dx, dw, db) of ``y = relu(x @ w + b)`` in plain PyTorch, with JAX
     ``_dot_add_relu_bwd``'s cast points (ray_structured.py:129-144): dx in
     x's dtype, dw and db in f32, the products through
-    ``ray_structured._dot`` with a ``cd``.  ``b`` is any shape that
+    ``products._dot`` with a ``cd``.  ``b`` is any shape that
     broadcasts against y's."""
     ct = cd or y.dtype
     gp = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype,
@@ -65,8 +64,8 @@ def linear_relu_bwd_plain(x, w, b, y, g, cd=None):
     if cd is None:
         dx = (gpf @ w.to(ct).float().t()).to(x.dtype)
     else:
-        dx = ray_structured._dot(gp, w.to(cd).t(), cd, x.dtype)
-    dw = ray_structured._dw(x.to(ct), gp, cd)
+        dx = products._dot(gp, w.to(cd).t(), cd, x.dtype)
+    dw = products._dw(x.to(ct), gp, cd)
     return dx, dw, _unbroadcast(gpf, b.shape)
 
 

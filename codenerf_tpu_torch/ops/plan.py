@@ -46,6 +46,14 @@ K2_STAGES = 3               # bf16 K2 / K3 row pass: weight chunks in
 K2_ENC = 80                 # bf16 K2 / K3 row pass: the encode product's
                             # N and the dW encode's columns, K1's layout
                             # (sin at 0, cos at 32, x at 64, ones at 67)
+LAYER_FWD_N = (128, 256)    # the fused linear + relu forward's output
+                            # widths: two 64 x 128 accumulators cover a
+                            # 64-row tile at 256, a 128-row tile at 128
+LAYER_FWD_MAX_K = 256       # its widest K (w^T held in shared memory)
+LAYER_FWD_MULTIPLE = 16     # w^T's K, zero-padded to a wgmma step
+LAYER_FWD_STAGES = 4        # x tiles in flight by TMA, at most (as many
+                            # as shared memory holds); 1 on the register
+                            # route of a K that is not a multiple of 8
 
 
 def padded(n: int, multiple: int) -> int:
@@ -479,3 +487,59 @@ def xtg_rows(gemm: dict, operands, part_ptr: int) -> list:
                  p["kd"], ldb, p["nd"], p["splits"], p["first_block"],
                  p["tiles_n"]]
     return rows + [gemm["blocks"]]
+
+
+def layer_fwd_fits(x_shape: tuple, w_shape: tuple, b_shape: tuple) -> bool:
+    """Whether the fused linear + relu forward (``csrc/layer_fwd.cu``)
+    takes x [..., K] @ w [K, N] plus b, from the shapes alone: K at most
+    ``LAYER_FWD_MAX_K``, N in ``LAYER_FWD_N``, 1 to 2^31 - 1 rows, and b a
+    bias [N] or per-ray rows [R, 1, N] with x [R, S, K]."""
+    if len(w_shape) != 2 or not x_shape:
+        return False
+    K, N = w_shape
+    rows = 1
+    for n in x_shape[:-1]:
+        rows *= n
+    if not (1 <= K <= LAYER_FWD_MAX_K and N in LAYER_FWD_N
+            and x_shape[-1] == K and 0 < rows < 2 ** 31):
+        return False
+    return b_shape == (N,) or (len(x_shape) == 3
+                               and b_shape == (x_shape[0], 1, N))
+
+
+def layer_fwd_tile_rows(N: int) -> int:
+    """Rows of the fused forward's tile: 64 at N = 256, 128 at N = 128."""
+    return 64 * 256 // N
+
+
+def layer_fwd_smem(K: int, N: int, stages: int) -> int:
+    """w^T and ``stages`` x tiles in 64-column blocks, the output tile, the
+    stages' barriers, alignment slack."""
+    ncb = -(-padded(K, LAYER_FWD_MULTIPLE) // 64)
+    tm = layer_fwd_tile_rows(N)
+    return (ncb * N * 128 + stages * ncb * tm * 128 + tm * N * 2
+            + 8 * LAYER_FWD_STAGES + 1024)
+
+
+def layer_fwd_plan(M: int, K: int, N: int, n_sm: int) -> dict:
+    """The fused forward over M rows: a persistent grid of one block per
+    SM (at most one per tile), block b owning tiles [b T / G, (b + 1) T /
+    G) of T; x's tiles by TMA in as many stages as shared memory
+    holds, up to ``LAYER_FWD_STAGES``, or, for a K that is not a multiple
+    of 8 (rows TMA cannot address), one tile at a time through registers;
+    w^T's K padded to ``LAYER_FWD_MULTIPLE``."""
+    if not layer_fwd_fits((M, K), (K, N), (N,)):
+        raise ValueError(f"the fused linear + relu forward takes K <= "
+                         f"{LAYER_FWD_MAX_K}, N in {LAYER_FWD_N} and 1 to "
+                         f"2^31 - 1 rows, got M={M}, w ({K}, {N})")
+    stages = 1
+    if K % 8 == 0:
+        stages = max(s for s in range(1, LAYER_FWD_STAGES + 1)
+                     if s == 1 or layer_fwd_smem(K, N, s) <= SMEM_LIMIT)
+    smem = layer_fwd_smem(K, N, stages)
+    _check_smem(f"the fused forward at w ({K}, {N})", smem)
+    tm = layer_fwd_tile_rows(N)
+    tiles = -(-M // tm)
+    grid = min(tiles, n_sm)
+    return {"tile_rows": tm, "smem": smem, "grid": grid, "stages": stages,
+            "k_pad": padded(K, LAYER_FWD_MULTIPLE)}

@@ -1,4 +1,4 @@
-"""The ray-structured trunk's products (``models/ray_structured.py::_dot``).
+"""The ray-structured trunk's products (``ops/products.py::_dot``).
 
 On the CPU every site that multiplies ``cd`` operands returns bit for bit
 what the f32 product of upcast operands returned before, at lego's widths;
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from codenerf_tpu_torch.models import ray_structured as rs
-from codenerf_tpu_torch.ops import layer_bwd
+from codenerf_tpu_torch.ops import layer_bwd, products
 from tests.torch_worker_threads import worker_threads  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
@@ -258,5 +258,5 @@ def test_cd_result_is_f32_result_rounded_once(card, k, n):
     reduction off, is the f32-result route rounded once."""
     x, w, *_ = _inputs(k, n, BF, card, rays=64, samples=64)
     a, b = x.reshape(-1, k), w.to(BF)
-    _bits(rs._f32_reduction_mm(a, b),
+    _bits(products._f32_reduction_mm(a, b),
           torch.mm(a, b, out_dtype=torch.float32).to(BF))
